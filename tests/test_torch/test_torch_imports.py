@@ -1,0 +1,55 @@
+"""What importing quimb_torch does, and does not do, in a fresh
+interpreter (this test process has JAX loaded by the test configuration,
+so each check runs in a subprocess)."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def _run(code, *args):
+    return subprocess.run([sys.executable, *args, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_import_never_imports_jax():
+    res = _run(
+        "import sys, quimb_torch, quimb_torch.tensor, quimb_torch.convert\n"
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
+    )
+    assert res.returncode == 0, res.stderr
+
+
+def test_cuda_kernels_build_nothing_on_cpu():
+    """Importing the kernel module and using it on CPU tensors needs no
+    nvcc and builds nothing."""
+    res = _run(
+        "import sys, torch\n"
+        "from quimb_torch.ops import _build, cuda_kernels as ck\n"
+        "def no_build():\n"
+        "    raise AssertionError('kernel build attempted')\n"
+        "_build.build = no_build\n"
+        "a = torch.ones((2, 3, 3)); th = torch.ones((3, 4))\n"
+        "b = torch.ones((2, 4, 5))\n"
+        "assert ck.sandwich_matvec(a, th, b).shape == (3, 5)\n"
+        "assert _build.load_library.cache_info().currsize == 0\n"
+        "assert 'torch.utils.cpp_extension' not in sys.modules\n"
+    )
+    assert res.returncode == 0, res.stderr
+
+
+def test_chip_smoke_refuses_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.py would run in full")
+    res = _run("import runpy; runpy.run_path('chip_smoke.py', "
+               "run_name='__main__')")
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+    assert "no CUDA device" in res.stderr
