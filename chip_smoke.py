@@ -8,19 +8,25 @@ GPU and the CUDA toolkit::
 It drives the DMRG2 ground-state search of the spin-1/2 Heisenberg chain
 at L=128, chi=256 on a float32 state, through the package's entry points
 (``MPO_ham_heis``, ``MPS_rand_state``, ``DMRG2.sweep``), with every
-effective-Hamiltonian matvec in the hand-written sandwich kernel. Its
-phases, each fatal on failure:
+effective-Hamiltonian matvec in the hand-written 3xTF32 sandwich kernel.
+Its phases, each fatal on failure:
 
 1. the device: a CUDA GPU is required; its name and power limit are
    printed;
-2. the build of ``quimb_torch/csrc`` with nvcc, timed;
-3. the kernel against its plain einsum (in float64) on the card, in
-   float32 and float64 at the main path's shapes; CUDA-event times of
-   both at the north-star shape;
+2. the build of ``quimb_torch/csrc`` with nvcc, timed; ptxas must report
+   no spills;
+3. the kernels against their plain einsum (in float64) on the card, in
+   float32 (3xTF32) and float64 (FP64) at the main path's shapes; two
+   applications of one prepared operand set, and a one-shot call, must
+   agree bitwise; CUDA-event times of the float32 matvec and the plain
+   einsum at the north-star shape, in the order plain, kernel, kernel,
+   plain; the prepare step's time, each launch's device time
+   (``torch.profiler``) and the float64 kernel's time;
 4. the main path: right sweeps at max_bond 64, 128, 256, 256, 256, then
-   one left sweep; each sweep must launch the kernel at least
-   ncv * (L - 1) times; the final state's energy, evaluated in float64
-   on the host, must lie within a relative 2e-5 of E_REF;
+   one left sweep; each sweep must launch the float32 kernel at least
+   ncv * (L - 1) times and the float64 one never; the final state's
+   energy, evaluated in float64 on the host, must lie within a relative
+   2e-5 of E_REF;
 5. where one bulk bond's time goes, phase by phase.
 
 The line before the last is the kernels' JSON summary; the last line is
@@ -28,6 +34,7 @@ The line before the last is the kernels' JSON summary; the last line is
 """
 
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -47,13 +54,16 @@ R_SCHEDULE = (64, 128, 256, 256, 256)
 # bench's acceptance bound for a float32 state (bench.py:402)
 E_REF = -56.535467821834
 E_REL_TOL = 2e-5
-# (w, M, K1, K2, N): the bulk bond at chi=256, a bond next to a chain
-# end, and a ragged shape that leaves partial tiles on every edge
-CHECK_SHAPES = ((5, 512, 512, 512, 512), (5, 4, 4, 512, 512),
-                (5, 130, 66, 98, 34))
+# (w, M, K1, K2, N): the bulk bond at chi=256, the 1-site (DMRG1) bond,
+# bonds next to a chain end (the end itself has M = K1 = 2), a ragged
+# shape that leaves partial tiles on every edge, and 1 x 1 bonds
+CHECK_SHAPES = ((5, 512, 512, 512, 512), (5, 512, 512, 256, 256),
+                (5, 4, 4, 512, 512), (5, 2, 2, 512, 512),
+                (5, 130, 66, 98, 34), (1, 1, 1, 1, 1))
 # relative Frobenius error against float64: accumulation over depths of
-# 512 and 5 * 512 in the operands' own precision
+# 512 and 5 * 512, in 3xTF32 for float32 and FP64 FMA for float64
 KERNEL_TOLS = {torch.float32: 1e-5, torch.float64: 1e-12}
+KERNEL_NAME = {torch.float32: "sandwich_tf32", torch.float64: "sandwich_f64"}
 
 
 def check_device():
@@ -75,7 +85,12 @@ def build_kernels():
     _build.load_library()
     print(f"kernel build: {time.perf_counter() - t0:.3f} s ({lib})",
           flush=True)
-    print((lib.parent / "build.log").read_text(), flush=True)
+    log = (lib.parent / "build.log").read_text()
+    print(log, flush=True)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                        r"loads", log)
+    if not spills or any(n != "0" for pair in spills for n in pair):
+        raise AssertionError("ptxas reports spills (or no spill report)")
 
 
 def _cuda(x, dtype):
@@ -96,11 +111,17 @@ def _event_ms(fn, args, reps=50):
     return start.elapsed_time(end) / reps
 
 
+def _rel_err(got, ref):
+    return (torch.linalg.norm(got.double() - ref)
+            / torch.linalg.norm(ref)).item()
+
+
 def check_kernel():
-    """Kernel vs plain version; returns (max_abs_err at the north-star
-    shape in float32, kernel ms, plain ms)."""
+    """Kernels vs plain version at every check shape, with bitwise
+    repeatability; returns (max_abs_err at the north-star shape in
+    float32, its host operands)."""
     rng = np.random.default_rng(SEED)
-    max_abs_err = None
+    max_abs_err = north = None
     for shape in CHECK_SHAPES:
         w, M, K1, K2, N = shape
         host = (rng.standard_normal((w, M, K1)),
@@ -110,34 +131,97 @@ def check_kernel():
             *(_cuda(x, torch.float64) for x in host)
         )
         for dtype, tol in KERNEL_TOLS.items():
-            got = ck.sandwich_matvec(*(_cuda(x, dtype) for x in host))
+            a, theta, b = (_cuda(x, dtype) for x in host)
+            before = ck.LAUNCHES[KERNEL_NAME[dtype]]
+            heff = ck.resolve_sandwich("cuda", dtype)(a, b)
+            got, again = heff(theta), heff(theta)
+            one_shot = ck.sandwich_matvec(a, theta, b)
             torch.cuda.synchronize()
-            diff = got.double() - ref
-            rel = (torch.linalg.norm(diff) / torch.linalg.norm(ref)).item()
+            if ck.LAUNCHES[KERNEL_NAME[dtype]] != before + 3:
+                raise AssertionError("the kernel's launch count is off")
+            rel = _rel_err(got, ref)
+            same = torch.equal(got, again) and torch.equal(got, one_shot)
             print(f"kernel {dtype} {shape}: relative error {rel:.3e} "
-                  f"(tolerance {tol:.0e})", flush=True)
+                  f"(tolerance {tol:.0e}), bitwise repeatable {same}",
+                  flush=True)
             if not rel <= tol:
                 raise AssertionError(f"sandwich kernel disagrees at "
                                      f"{shape} {dtype}: {rel:.3e}")
+            if not same:
+                raise AssertionError(f"sandwich kernel not repeatable at "
+                                     f"{shape} {dtype}")
             if shape == CHECK_SHAPES[0] and dtype == torch.float32:
-                max_abs_err = diff.abs().max().item()
-                args = tuple(_cuda(x, dtype) for x in host)
+                max_abs_err = (got.double() - ref).abs().max().item()
+                north = host
+    return max_abs_err, north
 
+
+# the launches of one float32 matvec, by kernel name, demangled or not
+TF32_LAUNCHES = (("split theta", ("split_transpose",)),
+                 ("pass 1", ("gemm_3xtf32<true>", "gemm_3xtf32ILb1E")),
+                 ("pass 2", ("gemm_3xtf32<false>", "gemm_3xtf32ILb0E")),
+                 ("sum over x", ("sum_partials",)))
+
+
+def _launch_device_ms(heff, theta, reps=20):
+    """Device ms of each launch of one float32 matvec, from
+    torch.profiler; None where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            heff(theta)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    times = {}
+    for step, names in TF32_LAUNCHES:
+        total = sum(getattr(ev, "device_time_total", 0) or 0
+                    for ev in events if any(n in ev.key for n in names))
+        times[step] = total / 1e3 / reps if total > 0 else None
+    return times
+
+
+def time_kernel(host):
+    """CUDA-event times at the north-star shape; returns (kernel ms,
+    plain ms) of the float32 matvec."""
+    a, theta, b = (_cuda(x, torch.float32) for x in host)
+    heff = ck.prepare_sandwich(a, b)
     # plain, kernel, kernel, plain on the same operands
     times = {"plain": [], "kernel": []}
     for name in ("plain", "kernel", "kernel", "plain"):
-        fn = (ck.sandwich_matvec_reference if name == "plain"
-              else ck.sandwich_matvec)
-        times[name].append(_event_ms(fn, args))
+        if name == "plain":
+            times[name].append(_event_ms(ck.sandwich_matvec_reference,
+                                         (a, theta, b)))
+        else:
+            times[name].append(_event_ms(heff, (theta,)))
     w, M, K1, K2, N = CHECK_SHAPES[0]
     flop = 2 * w * (M * K1 * K2 + M * K2 * N)
     kernel_ms = statistics.mean(times["kernel"])
     plain_ms = statistics.mean(times["plain"])
-    print(f"sandwich at {CHECK_SHAPES[0]} float32: kernel "
-          f"{times['kernel']} ms ({flop / kernel_ms / 1e9:.2f} TFLOP/s), "
-          f"plain einsum {times['plain']} ms "
+    print(f"sandwich at {CHECK_SHAPES[0]} float32: kernel (prepared, "
+          f"3xTF32) {times['kernel']} ms ({flop / kernel_ms / 1e9:.2f} "
+          f"TFLOP/s), plain einsum {times['plain']} ms "
           f"({flop / plain_ms / 1e9:.2f} TFLOP/s)", flush=True)
-    return max_abs_err, kernel_ms, plain_ms
+    prep_ms = _event_ms(ck.prepare_sandwich, (a, b), reps=20)
+    print(f"  prepare step (pad, lay out, split, encode), once per local "
+          f"solve: {prep_ms:.4f} ms", flush=True)
+    steps = _launch_device_ms(heff, theta)
+    for step, ms in steps.items():
+        print(f"  {step}: " + ("device time not measured" if ms is None
+                               else f"{ms:.4f} ms device time"),
+              flush=True)
+    if all(steps.values()):
+        print(f"  all launches: {sum(steps.values()):.4f} ms device time "
+              f"per matvec", flush=True)
+    a64, theta64, b64 = (_cuda(x, torch.float64) for x in host)
+    heff64 = ck.prepare_sandwich(a64, b64)
+    f64_ms = _event_ms(heff64, (theta64,))
+    plain64_ms = _event_ms(ck.sandwich_matvec_reference,
+                           (a64, theta64, b64))
+    print(f"sandwich at {CHECK_SHAPES[0]} float64: kernel (FP64 SIMT) "
+          f"{f64_ms:.4f} ms ({flop / f64_ms / 1e9:.2f} TFLOP/s), plain "
+          f"einsum {plain64_ms:.4f} ms", flush=True)
+    return kernel_ms, plain_ms
 
 
 def host_f64_energy(As, Ws):
@@ -168,25 +252,27 @@ def run_main_path():
     sweeps = [("R", mb) for mb in R_SCHEDULE] + [("L", CHI)]
 
     torch.cuda.synchronize()
-    ck.SANDWICH_LAUNCHES = 0
+    for name in ck.LAUNCHES:
+        ck.LAUNCHES[name] = 0
     t_path = time.perf_counter()
     for direction, max_bond in sweeps:
-        before = ck.SANDWICH_LAUNCHES
+        before = dict(ck.LAUNCHES)
         t0 = time.perf_counter()
         en = dmrg.sweep(direction, max_bond=max_bond, cutoff=0.0,
                         canonize=direction == "R")
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         dmrg.energies.append(en)
-        n = ck.SANDWICH_LAUNCHES - before
+        n = {k: ck.LAUNCHES[k] - before[k] for k in before}
         print(f"sweep {direction} max_bond={max_bond}: {dt:.3f} s, "
               f"energy {en:.10f}, sandwich launches {n}", flush=True)
-        if n < min_launches:
-            raise AssertionError(f"sweep launched the kernel {n} times, "
-                                 f"fewer than {min_launches}")
-    launches = ck.SANDWICH_LAUNCHES
+        if n["sandwich_tf32"] < min_launches or n["sandwich_f64"]:
+            raise AssertionError(f"sweep launched the kernels {n}; the "
+                                 f"float32 one fewer than {min_launches} "
+                                 f"times, or the float64 one")
+    launches = ck.LAUNCHES["sandwich_tf32"]
     print(f"main path: {time.perf_counter() - t_path:.3f} s, "
-          f"{launches} sandwich launches", flush=True)
+          f"sandwich launches {dict(ck.LAUNCHES)}", flush=True)
 
     for A in dmrg.state:
         if not (A.shape[0] <= CHI and A.shape[2] <= CHI
@@ -230,12 +316,15 @@ def bond_breakdown(dmrg):
     th = theta.reshape(A.shape[2], B.shape[1])
     mat = theta.reshape(A.shape[1], B.shape[2])
     T = torch.diag(torch.linspace(-1, 1, kw["ncv"], device=theta.device))
+    heff = ck.prepare_sandwich(A, B)
     phases = {
-        "local solve (operands + Lanczos + eigh)": lambda: (
+        "local solve (operands + prepare + Lanczos + eigh)": lambda: (
             D._local_solve_2site(lenv, W1, W2, renv, theta0, **kw)),
         "  sandwich operands": lambda: D._sandwich_operands(
             lenv, W1, W2, renv),
-        "  one sandwich matvec": lambda: ck.sandwich_matvec(A, th, B),
+        "  sandwich prepare (once per solve)": lambda: ck.prepare_sandwich(
+            A, B),
+        f"  one sandwich matvec ({kw['ncv']} per solve)": lambda: heff(th),
         f"  eigh {kw['ncv']}x{kw['ncv']}": lambda: torch.linalg.eigh(T),
         "split (masked SVD)": lambda: D._split_2site(theta, CHI, 0.0,
                                                      "right"),
@@ -253,13 +342,14 @@ def bond_breakdown(dmrg):
 def main():
     check_device()
     build_kernels()
-    max_abs_err, kernel_ms, plain_ms = check_kernel()
+    max_abs_err, north = check_kernel()
+    kernel_ms, plain_ms = time_kernel(north)
     dmrg, launches = run_main_path()
     bond_breakdown(dmrg)
     print(json.dumps({"kernels": [{
         "name": "sandwich_matvec",
         "route": "cuda",
-        "source": "quimb_torch/csrc/sandwich.cu",
+        "source": "quimb_torch/csrc/sandwich_tf32.cu",
         "replaces": "quimb_tpu/ops/pallas_kernels.py:68",
         "launches": launches,
         "max_abs_err": max_abs_err,

@@ -1,14 +1,15 @@
-// The DMRG effective-Hamiltonian "sandwich" matvec on Hopper (sm_90a):
+// The float64 DMRG effective-Hamiltonian "sandwich" matvec on Hopper
+// (sm_90a):
 //
 //     out (M, N) = sum_{x < w}  A[x] (M, K1) @ theta (K1, K2) @ B[x] (K2, N)
 //
 // It replaces the Pallas TPU kernel quimb_tpu/ops/pallas_kernels.py:
-// _sandwich_kernel (launched by sandwich_matvec there). At the north star
-// (w = 5, M = K1 = K2 = N = 2 chi = 512) one matvec is
-// 2 w (M K1 K2 + M K2 N) = 2.7 GFLOP against 5-10 MB of traffic, so on this
-// card it is bound by FP32 FMA throughput, not by memory: the precision
-// contract forbids TF32, which leaves the FP32 pipes (67 TFLOP/s on an H100
-// SXM at 700 W) as the ceiling.
+// _sandwich_kernel (launched by sandwich_matvec there) for float64; the
+// float32 matvec, which the DMRG main path runs, is the 3xTF32 tensor-core
+// kernel of sandwich_tf32.cu. At w = 5, M = K1 = K2 = N = 512 one matvec
+// is 2 w (M K1 K2 + M K2 N) = 2.7 GFLOP against 10-20 MB of traffic, so it
+// is bound by the FP64 pipes, not by memory. FP64 tensor cores (DMMA) are
+// later work.
 //
 // The TPU kernel streams over x on a sequential grid and carries the sum in a
 // VMEM accumulator, to keep the (w, M, K2) intermediate out of HBM. Blocks on
@@ -16,17 +17,15 @@
 // launches of one tiled, strided-batched GEMM:
 //
 //   pass 1:  T[:, x K2 : (x + 1) K2] = A[x] @ theta   for every x
-//            (batched over x, theta at batch stride 0; T is (M, w K2),
-//            5 MB at the north star, which stays in the 50 MB L2)
+//            (batched over x, theta at batch stride 0; T is (M, w K2))
 //   pass 2:  out = T @ B.reshape(w K2, N)
 //            (one GEMM of depth w K2: the sum over x is part of its K loop,
 //            with no atomics and a fixed summation order)
 //
 // The GEMM is deliberately simple: 64 x 64 output tiles, 16-deep
-// shared-memory stages, 4 x 4 register accumulators per thread, FP32 (or
-// FP64) FMA only. Ragged tiles are masked in the loads and the stores, so
-// every M, K1, K2, N is accepted, down to the 1 x 1 bonds at a chain's ends.
-// wgmma, TMA and a pipelined ring of stages are later work.
+// shared-memory stages, 4 x 4 register accumulators per thread, FP64 FMA
+// only. Ragged tiles are masked in the loads and the stores, so every M,
+// K1, K2, N is accepted, down to the 1 x 1 bonds at a chain's ends.
 
 #include <cuda_runtime.h>
 
@@ -38,10 +37,6 @@ constexpr int kBK = 16;                // depth of one shared-memory stage
 constexpr int kThreads = 256;          // 16 x 16 threads
 constexpr int kTM = kBM / 16;          // rows of C per thread
 constexpr int kTN = kBN / 16;          // columns of C per thread
-
-__device__ __forceinline__ float fma_rn(float a, float b, float c) {
-  return __fmaf_rn(a, b, c);
-}
 
 __device__ __forceinline__ double fma_rn(double a, double b, double c) {
   return __fma_rn(a, b, c);
@@ -147,17 +142,6 @@ int sandwich(const T* a, const T* theta, const T* b, T* t, T* out, int w,
 }
 
 }  // namespace
-
-extern "C" int sandwich_matvec_f32(const void* a, const void* theta,
-                                   const void* b, void* t, void* out, int w,
-                                   int M, int K1, int K2, int N,
-                                   void* stream) {
-  return sandwich(static_cast<const float*>(a),
-                  static_cast<const float*>(theta),
-                  static_cast<const float*>(b), static_cast<float*>(t),
-                  static_cast<float*>(out), w, M, K1, K2, N,
-                  static_cast<cudaStream_t>(stream));
-}
 
 extern "C" int sandwich_matvec_f64(const void* a, const void* theta,
                                    const void* b, void* t, void* out, int w,

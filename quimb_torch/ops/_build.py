@@ -2,7 +2,9 @@
 with ctypes.
 
 The sources have a plain C interface and include no PyTorch header, so
-one nvcc call takes seconds. The library goes into
+an nvcc call takes seconds. Each ``.cu`` is compiled by its own nvcc,
+all started together, and the objects are linked into one shared
+library. The library goes into
 ``quimb_torch/_build/<hash>/``, keyed by a hash of the sources and the
 flags: an unchanged checkout builds once, an edited source rebuilds.
 Nothing is built when a module is imported; the first kernel launch on a
@@ -24,7 +26,7 @@ LIB_NAME = "libquimb_torch_kernels.so"
 # the build log
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -51,27 +53,48 @@ def build_dir():
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
+def _run(cmds):
+    """Run the commands together; return (command, process, stdout,
+    stderr) for each, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    return [(c, p, *p.communicate()) for c, p in zip(cmds, procs)]
+
+
 def build():
     """Compile the kernels unless this build exists; return the library
-    path. The nvcc command and its output go to ``build.log`` beside
+    path. The nvcc commands and their output go to ``build.log`` beside
     it."""
     out_dir = build_dir()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    # build under a private name, then rename: a concurrent build of the
+    # build under private names, then rename: a concurrent build of the
     # same sources never sees a half-written library
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources() if s.suffix == ".cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr
-    )
-    if res.returncode != 0:
+    pid = os.getpid()
+    nvcc = _nvcc()
+    sources = [s for s in _sources() if s.suffix == ".cu"]
+    # nvcc tells objects by their ".o" suffix
+    objs = [out_dir / f"{s.stem}.{pid}.o" for s in sources]
+    log = []
+    results = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                    for s, o in zip(sources, objs)])
+    tmp = out_dir / f"{LIB_NAME}.{pid}.tmp"
+    if all(p.returncode == 0 for _, p, _, _ in results):
+        results += _run([[nvcc, "-shared", "-o", str(tmp),
+                          *map(str, objs)]])
+    for cmd, p, out, err in results:
+        log.append(" ".join(cmd) + "\n" + out + err)
+    (out_dir / "build.log").write_text("\n".join(log))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [(cmd, p, err) for cmd, p, _, err in results if p.returncode]
+    if failed:
+        cmd, p, err = failed[0]
         raise RuntimeError(
-            f"nvcc failed with code {res.returncode}:\n{res.stderr}"
+            f"nvcc failed with code {p.returncode}: {' '.join(cmd)}\n{err}"
         )
     os.replace(tmp, lib)
     return lib

@@ -1,11 +1,23 @@
 """Hand-written CUDA kernels of quimb_torch, beside their plain PyTorch
 versions.
 
-:func:`sandwich_matvec` replaces quimb_tpu's Pallas kernel
-(``quimb_tpu/ops/pallas_kernels.py:_sandwich_kernel``). CPU tensors go
-through :func:`sandwich_matvec_reference`; CUDA tensors go through the
-kernel in ``quimb_torch/csrc/sandwich.cu``, or the call raises. There is
-no size gate and no switch: the kernel masks ragged tiles itself.
+The sandwich matvec ``out = sum_x a[x] @ theta @ b[x]`` replaces
+quimb_tpu's Pallas kernel (``quimb_tpu/ops/pallas_kernels.py:
+_sandwich_kernel``). A local solve applies it to many ``theta`` with the
+same stacks ``a`` and ``b``, so it comes in two steps: a prepare step
+takes the stacks once and returns a callable that applies the matvec to
+one ``theta``. :func:`resolve_sandwich` picks the prepare step once,
+from the device and the dtype:
+
+- CPU tensors: :func:`prepare_sandwich_reference`, the plain einsum;
+- CUDA float32: :func:`prepare_sandwich_tf32`, the 3xTF32 tensor-core
+  kernel of ``quimb_torch/csrc/sandwich_tf32.cu``;
+- CUDA float64: :func:`prepare_sandwich_f64`, the FP64 kernel of
+  ``quimb_torch/csrc/sandwich.cu``;
+- anything else raises. There is no size gate and no switch: the kernels
+  take every shape.
+
+:func:`sandwich_matvec` is the one-shot form (prepare, then apply).
 """
 
 import ctypes
@@ -15,20 +27,77 @@ import torch
 
 from . import _build
 
-#: Launches of the sandwich kernel in this process; each call of
-#: :func:`sandwich_matvec` on CUDA tensors adds one. Callers may reset it.
-SANDWICH_LAUNCHES = 0
+#: Matvecs launched on the card in this process, by kernel; a prepared
+#: operand set adds one to its kernel's count per application. Callers
+#: may reset the counts.
+LAUNCHES = {"sandwich_tf32": 0, "sandwich_f64": 0}
 
-_SANDWICH_SYMBOLS = {
-    torch.float32: "sandwich_matvec_f32",
-    torch.float64: "sandwich_matvec_f64",
-}
+# the float32 kernel's stacks and scratch are zero-padded to whole tiles:
+# M and N to 128 (a wgmma n128 tile), K1 to 32 (one 128-byte stage), K2
+# to 64 (a warpgroup's 64 rows in pass 1, and whole stages in pass 2)
+_PAD_M, _PAD_K1, _PAD_K2, _PAD_N = 128, 32, 64, 128
 
 
 def sandwich_matvec_reference(a, theta, b):
     """``sum_x a[x] @ theta @ b[x]`` as a plain einsum: a (w, M, K1),
     theta (K1, K2), b (w, K2, N) -> (M, N)."""
     return torch.einsum("xmk,kl,xln->mn", a, theta, b)
+
+
+def _roundup(n, m):
+    return -(-n // m) * m
+
+
+def sandwich_padded_dims(M, K1, K2, N):
+    """(Mp, K1p, K2p, Np): the float32 kernel's padded sizes."""
+    return (_roundup(M, _PAD_M), _roundup(K1, _PAD_K1),
+            _roundup(K2, _PAD_K2), _roundup(N, _PAD_N))
+
+
+def sandwich_layout(a, b):
+    """The float32 kernel's layout of the stacks, in plain torch on any
+    device and dtype: a (w, M, K1) -> (w, Mp, K1p) and b (w, K2, N) ->
+    b transposed, (w, Np, K2p), both zero-padded. Then
+    ``out = sum_x a_p[x] @ theta_p @ b_p[x].T`` with theta zero-padded to
+    (K1p, K2p) holds ``sandwich_matvec(a, theta, b)`` in its (M, N)
+    corner, and every product reads its operands K-major."""
+    w, M, K1, K2, N = _stack_dims(a, b)
+    Mp, K1p, K2p, Np = sandwich_padded_dims(M, K1, K2, N)
+    ap = a.new_zeros((w, Mp, K1p))
+    ap[:, :M, :K1] = a
+    bp = b.new_zeros((w, Np, K2p))
+    bp[:, :N, :K2] = b.transpose(1, 2)
+    return ap, bp
+
+
+def _tf32_round(x):
+    """x float32 rounded to tf32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds."""
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x):
+    """x float32 -> (2, *x.shape): ``[big, small]`` with big = tf32(x)
+    and small = tf32(x - big), so big + small = x to about 2^-22
+    relative. The difference x - big is exact in float32."""
+    x = x.contiguous()
+    big = _tf32_round(x)
+    return torch.stack((big, _tf32_round(x - big)))
+
+
+def _stack_dims(a, b):
+    if a.ndim != 3 or b.ndim != 3:
+        raise ValueError("sandwich stacks must be (w,M,K1) and (w,K2,N)")
+    w, M, K1 = a.shape
+    wb, K2, N = b.shape
+    if wb != w:
+        raise ValueError(f"sandwich stacks disagree: a {tuple(a.shape)}, "
+                         f"b {tuple(b.shape)}")
+    if min(w, M, K1, K2, N) < 1:
+        raise ValueError(f"sandwich sizes out of range: w={w}, M={M}, "
+                         f"K1={K1}, K2={K2}, N={N}")
+    return w, M, K1, K2, N
 
 
 def _check_kernel_target(device, dtype):
@@ -40,33 +109,159 @@ def _check_kernel_target(device, dtype):
         raise NotImplementedError(
             f"the sandwich kernel is real (float32, float64), got {dtype}"
         )
-    if dtype not in _SANDWICH_SYMBOLS:
+    if dtype not in (torch.float32, torch.float64):
         raise TypeError(
             f"the sandwich kernel takes float32 or float64, got {dtype}"
         )
 
 
-def resolve_sandwich(device, dtype):
-    """The sandwich matvec for operands of ``dtype`` on ``device``: the
-    plain version on the CPU, the kernel on CUDA. Raises for what the
-    kernel does not take, so a solver can resolve it once, up front."""
-    device = torch.device(device)
-    if device.type == "cpu":
-        return sandwich_matvec_reference
-    _check_kernel_target(device, dtype)
-    return sandwich_matvec
-
-
 @functools.cache
 def _library():
     lib = _build.load_library()
-    for name in _SANDWICH_SYMBOLS.values():
+    sigs = {
+        "sandwich_matvec_f64": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        + [ctypes.c_void_p],
+        "sandwich_tf32_maps_bytes": [],
+        "sandwich_tf32_encode": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5,
+        "sandwich_tf32_apply": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+        + [ctypes.c_void_p],
+    }
+    for name, argtypes in sigs.items():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p
-        ]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def _check_error(err, what):
+    if err != 0:
+        raise RuntimeError(f"sandwich kernel {what} failed: CUDA error "
+                           f"{err}")
+
+
+class _Prepared:
+    """Stacks laid out for one kernel; calling it with theta (K1, K2)
+    launches one matvec on the current stream and returns (M, N).
+    The scratch is the operand set's own, so its matvecs run in stream
+    order on one stream."""
+
+    def __init__(self, a, b):
+        _check_kernel_target(a.device, a.dtype)
+        if b.device != a.device or b.dtype != a.dtype:
+            raise ValueError("sandwich operands must share device and dtype")
+        self.dims = _stack_dims(a, b)
+        self.device, self.dtype = a.device, a.dtype
+
+    def _check_theta(self, theta):
+        _, _, K1, K2, _ = self.dims
+        if theta.device != self.device or theta.dtype != self.dtype:
+            raise ValueError("sandwich operands must share device and dtype")
+        if tuple(theta.shape) != (K1, K2):
+            raise ValueError(f"theta must be ({K1}, {K2}), got "
+                             f"{tuple(theta.shape)}")
+        if not theta.is_contiguous():
+            raise ValueError("theta must be contiguous")
+
+    def _stream(self):
+        return torch.cuda.current_stream(self.device).cuda_stream
+
+
+class _PreparedTF32(_Prepared):
+    def __init__(self, a, b):
+        super().__init__(a, b)
+        w, M, K1, K2, N = self.dims
+        Mp, K1p, K2p, Np = self.padded = sandwich_padded_dims(M, K1, K2, N)
+        if 2 * w * max(Mp, Np, K2p) >= 2**31:
+            raise ValueError(f"sandwich sizes out of range: w={w}, M={M}, "
+                             f"K1={K1}, K2={K2}, N={N}")
+        ap, bp = sandwich_layout(a, b)
+        self.a, self.b = tf32_split(ap), tf32_split(bp)
+        new = functools.partial(torch.empty, dtype=a.dtype, device=a.device)
+        self.theta_t = new((2, K2p, K1p))
+        self.t = new((2, Mp, w * K2p))
+        self.part = new((w, Mp, Np))
+        lib = _library()
+        self._maps = ctypes.create_string_buffer(
+            lib.sandwich_tf32_maps_bytes())
+        with torch.cuda.device(self.device):
+            err = lib.sandwich_tf32_encode(
+                ctypes.addressof(self._maps), self.a.data_ptr(),
+                self.b.data_ptr(), self.theta_t.data_ptr(),
+                self.t.data_ptr(), w, Mp, K1p, K2p, Np)
+        _check_error(err, "tensor-map encoding")
+
+    def __call__(self, theta):
+        self._check_theta(theta)
+        w, M, K1, K2, N = self.dims
+        out = torch.empty((M, N), dtype=self.dtype, device=self.device)
+        with torch.cuda.device(self.device):
+            err = _library().sandwich_tf32_apply(
+                ctypes.addressof(self._maps), theta.data_ptr(),
+                self.theta_t.data_ptr(), self.t.data_ptr(),
+                self.part.data_ptr(), out.data_ptr(), w, M, K1, K2, N,
+                *self.padded, self._stream())
+        _check_error(err, "launch")
+        LAUNCHES["sandwich_tf32"] += 1
+        return out
+
+
+class _PreparedF64(_Prepared):
+    def __init__(self, a, b):
+        super().__init__(a, b)
+        w, M, _, K2, _ = self.dims
+        self.a, self.b = a.contiguous(), b.contiguous()
+        self.t = torch.empty((M, w * K2), dtype=a.dtype, device=a.device)
+
+    def __call__(self, theta):
+        self._check_theta(theta)
+        w, M, K1, K2, N = self.dims
+        out = torch.empty((M, N), dtype=self.dtype, device=self.device)
+        with torch.cuda.device(self.device):
+            err = _library().sandwich_matvec_f64(
+                self.a.data_ptr(), theta.data_ptr(), self.b.data_ptr(),
+                self.t.data_ptr(), out.data_ptr(), w, M, K1, K2, N,
+                self._stream())
+        _check_error(err, "launch")
+        LAUNCHES["sandwich_f64"] += 1
+        return out
+
+
+def prepare_sandwich_reference(a, b):
+    """The plain version of the prepare step: ``theta ->
+    sandwich_matvec_reference(a, theta, b)``."""
+    return lambda theta: sandwich_matvec_reference(a, theta, b)
+
+
+def prepare_sandwich_tf32(a, b):
+    """Prepare float32 CUDA stacks for the 3xTF32 kernel: pad, lay out
+    (:func:`sandwich_layout`) and split (:func:`tf32_split`) them once,
+    allocate the scratch and encode the tensor maps."""
+    return _PreparedTF32(a, b)
+
+
+def prepare_sandwich_f64(a, b):
+    """Prepare float64 CUDA stacks for the FP64 kernel."""
+    return _PreparedF64(a, b)
+
+
+def resolve_sandwich(device, dtype):
+    """The prepare step for operands of ``dtype`` on ``device``: the plain
+    version on the CPU, a kernel's on CUDA. Raises for what the kernels
+    do not take, so a solver can resolve it once, up front."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return prepare_sandwich_reference
+    _check_kernel_target(device, dtype)
+    return {torch.float32: prepare_sandwich_tf32,
+            torch.float64: prepare_sandwich_f64}[dtype]
+
+
+def prepare_sandwich(a, b):
+    """Prepare the stacks a (w, M, K1) and b (w, K2, N) with the prepare
+    step that :func:`resolve_sandwich` picks for them."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return prepare_sandwich_reference(a, b)
+    return resolve_sandwich(a.device, a.dtype)(a, b)
 
 
 def sandwich_matvec(a, theta, b):
@@ -74,42 +269,10 @@ def sandwich_matvec(a, theta, b):
     b (w, K2, N) -> (M, N), in the dtype of the operands.
 
     On CPU tensors this is :func:`sandwich_matvec_reference`. On CUDA
-    tensors (contiguous, one device, float32 or float64) it launches the
-    hand-written kernel on the current stream and counts the launch in
-    :data:`SANDWICH_LAUNCHES`; anything else raises.
+    tensors (one device, float32 or float64, theta contiguous) it
+    prepares the stacks and launches one matvec of the kernel on the
+    current stream; anything else raises.
     """
-    global SANDWICH_LAUNCHES
-    tensors = (a, theta, b)
-    if all(t.device.type == "cpu" for t in tensors):
+    if all(t.device.type == "cpu" for t in (a, theta, b)):
         return sandwich_matvec_reference(a, theta, b)
-    _check_kernel_target(a.device, a.dtype)
-    if any(t.device != a.device or t.dtype != a.dtype for t in tensors):
-        raise ValueError("sandwich operands must share device and dtype")
-    if a.ndim != 3 or theta.ndim != 2 or b.ndim != 3:
-        raise ValueError("sandwich operands must be (w,M,K1), (K1,K2), "
-                         "(w,K2,N)")
-    w, M, K1 = a.shape
-    K2, N = theta.shape[1], b.shape[2]
-    if theta.shape[0] != K1 or tuple(b.shape[:2]) != (w, K2):
-        raise ValueError(
-            f"sandwich shapes disagree: a {tuple(a.shape)}, theta "
-            f"{tuple(theta.shape)}, b {tuple(b.shape)}"
-        )
-    if min(w, M, K1, K2, N) < 1 or w * K2 >= 2**31:
-        raise ValueError(f"sandwich sizes out of range: w={w}, M={M}, "
-                         f"K1={K1}, K2={K2}, N={N}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("sandwich operands must be contiguous")
-
-    fn = getattr(_library(), _SANDWICH_SYMBOLS[a.dtype])
-    t = torch.empty((M, w * K2), dtype=a.dtype, device=a.device)
-    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), theta.data_ptr(), b.data_ptr(),
-                 t.data_ptr(), out.data_ptr(), w, M, K1, K2, N, stream)
-    if err != 0:
-        raise RuntimeError(f"sandwich kernel launch failed: CUDA error "
-                           f"{err}")
-    SANDWICH_LAUNCHES += 1
-    return out
+    return prepare_sandwich(a, b)(theta)

@@ -139,19 +139,22 @@ def _local_solve_2site(L, W1, W2, R, theta0, ncv, restarts,
     """Restarted-Lanczos ground state of the 2-site effective
     Hamiltonian. Returns (energy, theta), both on the device.
 
-    ``sandwich`` is the matvec of :mod:`quimb_torch.ops.cuda_kernels`,
-    resolved once by the caller; by default it is resolved from
-    ``theta0``. With ``norm_energy`` the energy is the variational
-    Rayleigh quotient ⟨ψ|H|ψ⟩/⟨ψ|ψ⟩ of the full updated MPS, with ⟨ψ|ψ⟩
-    from :func:`_overlap_norm_2site`; without it, the raw Ritz value.
+    ``sandwich`` is the prepare step of the sandwich matvec
+    (:func:`quimb_torch.ops.cuda_kernels.resolve_sandwich`), resolved once
+    by the caller; by default it is resolved from ``theta0``. It lays out
+    the stacks once per solve; every Lanczos matvec applies them. With
+    ``norm_energy`` the energy is the variational Rayleigh quotient
+    ⟨ψ|H|ψ⟩/⟨ψ|ψ⟩ of the full updated MPS, with ⟨ψ|ψ⟩ from
+    :func:`_overlap_norm_2site`; without it, the raw Ritz value.
     """
     if sandwich is None:
         sandwich = resolve_sandwich(theta0.device, theta0.dtype)
     A, B = _sandwich_operands(L, W1, W2, R)
     K1, K2 = A.shape[2], B.shape[1]
+    heff = sandwich(A, B)
 
     def matvec(th):
-        out = sandwich(A, torch.reshape(th, (K1, K2)), B)
+        out = heff(torch.reshape(th, (K1, K2)))
         return torch.reshape(out, theta0.shape)
 
     v = theta0 / torch.linalg.norm(torch.reshape(theta0, (-1,)))
@@ -253,8 +256,8 @@ class DMRG:
         default.
 
     Every tensor lives on the device of ``ham_arrays``. The dtype is the
-    promotion of the MPO's and the start state's. The sandwich matvec
-    is resolved here, once, from that device and dtype.
+    promotion of the MPO's and the start state's. The sandwich matvec's
+    prepare step is resolved here, once, from that device and dtype.
     """
 
     def __init__(self, ham_arrays, bond_dims, cutoffs=1e-9, p0=None):

@@ -1,5 +1,6 @@
-"""quimb_torch on a CUDA GPU: the hand-written sandwich kernel against
-its plain version, and a small DMRG2 run against the CPU port.
+"""quimb_torch on a CUDA GPU: the hand-written sandwich kernels (3xTF32
+for float32, FP64 for float64) against their plain version, and a small
+DMRG2 run against the CPU port.
 
 Every test here needs a GPU and skips without one. The file imports no
 JAX; on a GPU machine run it without the JAX setup of the test
@@ -17,10 +18,20 @@ from quimb_torch.ops import cuda_kernels as ck
 
 pytestmark = pytest.mark.cuda
 
-# (w, M, K1, K2, N): the bulk bond at chi=256, a bond next to a chain
-# end, a ragged shape, and 1 x 1 bonds
-SHAPES = [(5, 512, 512, 512, 512), (5, 4, 4, 512, 512),
-          (5, 130, 66, 98, 34), (1, 1, 1, 1, 1)]
+# (w, M, K1, K2, N): the bulk bond at chi=256, the 1-site (DMRG1) bond,
+# bonds next to a chain end, a ragged shape (K1 and N no multiple of 4),
+# a small odd one and 1 x 1 bonds
+SHAPES = [(5, 512, 512, 512, 512), (5, 512, 512, 256, 256),
+          (5, 4, 4, 512, 512), (5, 2, 2, 512, 512), (5, 130, 66, 98, 34),
+          (3, 7, 5, 9, 3), (1, 1, 1, 1, 1)]
+_KERNEL = {torch.float32: "sandwich_tf32", torch.float64: "sandwich_f64"}
+
+
+def _host_operands(shape, seed=0):
+    w, M, K1, K2, N = shape
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((w, M, K1)), rng.standard_normal((K1, K2)),
+            rng.standard_normal((w, K2, N)))
 
 
 @pytest.fixture
@@ -35,21 +46,50 @@ def cuda():
                                        (torch.float64, 1e-12)])
 def test_kernel_matches_plain(cuda, shape, dtype, tol):
     w, M, K1, K2, N = shape
-    rng = np.random.default_rng(0)
-    host = (rng.standard_normal((w, M, K1)), rng.standard_normal((K1, K2)),
-            rng.standard_normal((w, K2, N)))
+    host = _host_operands(shape)
     ref = ck.sandwich_matvec_reference(
         *(torch.as_tensor(x, device=cuda) for x in host))
-    before = ck.SANDWICH_LAUNCHES
+    before = dict(ck.LAUNCHES)
     got = ck.sandwich_matvec(
         *(torch.as_tensor(x, dtype=dtype, device=cuda) for x in host))
     torch.cuda.synchronize()
-    assert ck.SANDWICH_LAUNCHES == before + 1
+    assert ck.LAUNCHES == {**before, _KERNEL[dtype]: before[_KERNEL[dtype]]
+                           + 1}
     assert got.dtype == dtype and got.shape == (M, N)
-    # relative Frobenius error against float64: sums over depths up to
-    # 5 * 512 in the operands' precision
+    # relative Frobenius error against float64: float32 sums over depths
+    # up to 5 * 512 in 3xTF32, float64 ones in FP64 FMA
     rel = torch.linalg.norm(got.double() - ref) / torch.linalg.norm(ref)
     assert rel.item() <= tol
+
+
+@pytest.mark.parametrize("shape", SHAPES[:5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_bitwise_repeatable(cuda, shape, dtype):
+    """No atomics: the same operands give the same bits, whether prepared
+    once and applied twice or prepared anew."""
+    a, theta, b = (torch.as_tensor(x, dtype=dtype, device=cuda)
+                   for x in _host_operands(shape, seed=1))
+    heff = ck.resolve_sandwich(cuda, dtype)(a, b)
+    first, second = heff(theta), heff(theta)
+    one_shot = ck.sandwich_matvec(a, theta, b)
+    assert torch.equal(first, second)
+    assert torch.equal(first, one_shot)
+
+
+def test_prepared_applies_many_thetas(cuda):
+    """One prepared operand set applied to several theta, back to back on
+    one stream (its scratch is reused), gives the one-shot results."""
+    shape = (5, 130, 66, 98, 34)
+    a, _, b = (torch.as_tensor(x, dtype=torch.float32, device=cuda)
+               for x in _host_operands(shape, seed=2))
+    rng = np.random.default_rng(3)
+    thetas = [torch.as_tensor(rng.standard_normal((66, 98)),
+                              dtype=torch.float32, device=cuda)
+              for _ in range(4)]
+    heff = ck.prepare_sandwich(a, b)
+    outs = [heff(th) for th in thetas]
+    for th, out in zip(thetas, outs):
+        assert torch.equal(out, ck.sandwich_matvec(a, th, b))
 
 
 def test_kernel_rejects(cuda):
@@ -82,3 +122,28 @@ def test_dmrg_matches_cpu(cuda):
     # float64 on both; the sums run in other orders
     np.testing.assert_allclose(energies["cuda"], energies["cpu"],
                                rtol=1e-10)
+
+
+def test_dmrg_float32_through_tf32_kernel(cuda):
+    """A float32 DMRG2 run on the card goes through the 3xTF32 kernel at
+    every matvec and follows the float64 CPU run's energies."""
+    energies = {}
+    for device, dtype in (("cpu", torch.float64), (cuda, torch.float32)):
+        H = quimb_torch.MPO_ham_heis(16, dtype=dtype, device=device)
+        p0 = quimb_torch.MPS_rand_state(16, 8, seed=1, dtype=dtype,
+                                        device=device)
+        dmrg = quimb_torch.DMRG2(H, bond_dims=16, cutoffs=0.0, p0=p0)
+        before = dict(ck.LAUNCHES)
+        energies[str(device)] = [
+            dmrg.sweep(d, max_bond=16, cutoff=0.0, canonize=d == "R")
+            for d in "RLRL"
+        ]
+        if dtype == torch.float32:
+            n = ck.LAUNCHES["sandwich_tf32"] - before["sandwich_tf32"]
+            assert n >= 4 * 8 * 15
+            assert ck.LAUNCHES["sandwich_f64"] == before["sandwich_f64"]
+    # the converged sweeps of a float32 state against float64 agree to
+    # the float32 bound of chip_smoke.py's main path (the first sweeps,
+    # from a random state, follow other float32 and float64 paths)
+    np.testing.assert_allclose(energies["cuda"][-2:], energies["cpu"][-2:],
+                               rtol=2e-5)

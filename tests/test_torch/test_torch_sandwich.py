@@ -71,19 +71,21 @@ def test_operands_match_heff_2site(cl, cr):
 def test_wrapper_takes_plain_version_on_cpu():
     ops = tuple(map(torch.from_numpy, _operands(
         np.random.default_rng(2), 5, 12, 12, 10, 10, np.float64)))
-    before = ck.SANDWICH_LAUNCHES
+    before = dict(ck.LAUNCHES)
     got = ck.sandwich_matvec(*ops)
     assert torch.equal(got, ck.sandwich_matvec_reference(*ops))
-    assert ck.SANDWICH_LAUNCHES == before
+    assert ck.LAUNCHES == before
 
 
 def test_resolve_sandwich():
     assert ck.resolve_sandwich("cpu", torch.float32) is \
-        ck.sandwich_matvec_reference
+        ck.prepare_sandwich_reference
     assert ck.resolve_sandwich("cpu", torch.complex128) is \
-        ck.sandwich_matvec_reference
-    for dtype in (torch.float32, torch.float64):
-        assert ck.resolve_sandwich("cuda", dtype) is ck.sandwich_matvec
+        ck.prepare_sandwich_reference
+    assert ck.resolve_sandwich("cuda", torch.float32) is \
+        ck.prepare_sandwich_tf32
+    assert ck.resolve_sandwich("cuda", torch.float64) is \
+        ck.prepare_sandwich_f64
     for dtype in (torch.complex64, torch.complex128):
         with pytest.raises(NotImplementedError):
             ck.resolve_sandwich("cuda", dtype)
