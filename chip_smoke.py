@@ -6,30 +6,36 @@ GPU and the CUDA toolkit::
     python3 chip_smoke.py
 
 It drives the DMRG2 ground-state search of the spin-1/2 Heisenberg chain
-at L=128, chi=256 on a float32 state, through the package's entry points
-(``MPO_ham_heis``, ``MPS_rand_state``, ``DMRG2.sweep``), with every
-effective-Hamiltonian matvec in the hand-written 3xTF32 sandwich kernel.
-Its phases, each fatal on failure:
+at L=128, chi=256 through the package's entry points (``MPO_ham_heis``,
+``MPS_rand_state``, ``DMRG2.sweep``), twice: on a float32 state, with
+every effective-Hamiltonian matvec in the hand-written 3xTF32 sandwich
+kernel, and on a float64 state, with every matvec in the hand-written
+FP64 tensor-core (DMMA) kernel. Its phases, each fatal on failure:
 
 1. the device: a CUDA GPU is required; its name and power limit are
    printed;
 2. the build of ``quimb_torch/csrc`` with nvcc, timed; ptxas must report
-   no spills;
+   no spills, and the float64 kernel's SASS must hold DMMA instructions;
 3. the kernels against their plain einsum (in float64) on the card, in
-   float32 (3xTF32) and float64 (FP64) at the main path's shapes; two
+   float32 (3xTF32) and float64 (DMMA) at the main paths' shapes; two
    applications of one prepared operand set, and a one-shot call, must
-   agree bitwise; CUDA-event times of the float32 matvec and the plain
-   einsum at the north-star shape, in the order plain, kernel, kernel,
-   plain; the prepare step's time, each launch's device time
-   (``torch.profiler``) and the float64 kernel's time;
-4. the main path: right sweeps at max_bond 64, 128, 256, 256, 256, then
-   one left sweep; each sweep must launch the float32 kernel at least
-   ncv * (L - 1) times and the float64 one never; the final state's
-   energy, evaluated in float64 on the host, must lie within a relative
-   2e-5 of E_REF;
-5. where one bulk bond's time goes, phase by phase.
+   agree bitwise; for each dtype, CUDA-event times of the matvec and the
+   plain einsum at the north-star shape, in the order plain, kernel,
+   kernel, plain, the prepare step's time and each launch's device time
+   (``torch.profiler``);
+4. the float32 main path: right sweeps at max_bond 64, 128, 256, 256,
+   256, then one left sweep; each sweep must launch the float32 kernel
+   at least ncv * restarts * (L - 1) times and the float64 one never;
+   the final state's energy, evaluated in float64 on the host, must lie
+   within a relative 2e-5 of E_REF;
+5. where one bulk bond's time goes, phase by phase;
+6. the float64 path: the same schedule on a float64 state; each sweep
+   must launch the float64 kernel at least ncv * restarts * (L - 1)
+   times and the float32 one never; the host energy must lie within a
+   relative 1e-6 of E_REF; then phase 5 on one of its bulk bonds.
 
-The line before the last is the kernels' JSON summary; the last line is
+The line before the last is the kernels' JSON summary, one entry per
+kernel with its launches on its own path; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -38,6 +44,7 @@ import re
 import statistics
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -51,9 +58,10 @@ from quimb_torch.tensor.tn1d import dmrg as D
 L, CHI, P0_BOND, SEED = 128, 256, 32, 42
 R_SCHEDULE = (64, 128, 256, 256, 256)
 # converged float64 DMRG2 energy of this chain (bench.py:392) and the
-# bench's acceptance bound for a float32 state (bench.py:402)
+# bench's acceptance bounds on the relative error for a float32 and a
+# float64 state (bench.py:402)
 E_REF = -56.535467821834
-E_REL_TOL = 2e-5
+E_REL_TOL = {torch.float32: 2e-5, torch.float64: 1e-6}
 # (w, M, K1, K2, N): the bulk bond at chi=256, the 1-site (DMRG1) bond,
 # bonds next to a chain end (the end itself has M = K1 = 2), a ragged
 # shape that leaves partial tiles on every edge, and 1 x 1 bonds
@@ -61,9 +69,13 @@ CHECK_SHAPES = ((5, 512, 512, 512, 512), (5, 512, 512, 256, 256),
                 (5, 4, 4, 512, 512), (5, 2, 2, 512, 512),
                 (5, 130, 66, 98, 34), (1, 1, 1, 1, 1))
 # relative Frobenius error against float64: accumulation over depths of
-# 512 and 5 * 512, in 3xTF32 for float32 and FP64 FMA for float64
+# 512 and 5 * 512, in 3xTF32 for float32 and on the FP64 tensor cores for
+# float64
 KERNEL_TOLS = {torch.float32: 1e-5, torch.float64: 1e-12}
 KERNEL_NAME = {torch.float32: "sandwich_tf32", torch.float64: "sandwich_f64"}
+KERNEL_SOURCE = {torch.float32: "quimb_torch/csrc/sandwich_tf32.cu",
+                 torch.float64: "quimb_torch/csrc/sandwich_f64.cu"}
+KERNEL_KIND = {torch.float32: "3xTF32", torch.float64: "FP64 DMMA"}
 
 
 def check_device():
@@ -91,6 +103,17 @@ def build_kernels():
                         r"loads", log)
     if not spills or any(n != "0" for pair in spills for n in pair):
         raise AssertionError("ptxas reports spills (or no spill report)")
+    # the float64 kernel's products must run on the FP64 tensor cores
+    # (DMMA), not on the FMA pipes (DFMA)
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    dmma = re.findall(r"\bDMMA\.\S+", sass)
+    dfma = re.findall(r"\bDFMA\b", sass)
+    print(f"SASS: {len(dmma)} DMMA instructions {sorted(set(dmma))}, "
+          f"{len(dfma)} DFMA", flush=True)
+    if not dmma:
+        raise AssertionError("the float64 kernel's SASS holds no DMMA")
 
 
 def _cuda(x, dtype):
@@ -118,10 +141,10 @@ def _rel_err(got, ref):
 
 def check_kernel():
     """Kernels vs plain version at every check shape, with bitwise
-    repeatability; returns (max_abs_err at the north-star shape in
-    float32, its host operands)."""
+    repeatability; returns ({dtype: max_abs_err at the north-star shape},
+    its host operands)."""
     rng = np.random.default_rng(SEED)
-    max_abs_err = north = None
+    max_abs_err, north = {}, None
     for shape in CHECK_SHAPES:
         w, M, K1, K2, N = shape
         host = (rng.standard_normal((w, M, K1)),
@@ -150,21 +173,25 @@ def check_kernel():
             if not same:
                 raise AssertionError(f"sandwich kernel not repeatable at "
                                      f"{shape} {dtype}")
-            if shape == CHECK_SHAPES[0] and dtype == torch.float32:
-                max_abs_err = (got.double() - ref).abs().max().item()
+            if shape == CHECK_SHAPES[0]:
+                max_abs_err[dtype] = (got.double() - ref).abs().max().item()
                 north = host
     return max_abs_err, north
 
 
-# the launches of one float32 matvec, by kernel name, demangled or not
+# the launches of one matvec, by kernel name, demangled or not
 TF32_LAUNCHES = (("split theta", ("split_transpose",)),
                  ("pass 1", ("gemm_3xtf32<true>", "gemm_3xtf32ILb1E")),
                  ("pass 2", ("gemm_3xtf32<false>", "gemm_3xtf32ILb0E")),
                  ("sum over x", ("sum_partials",)))
+F64_LAUNCHES = (("pad theta", ("pad_transpose_f64",)),
+                ("passes 1 and 2", ("gemm_dmma",)),
+                ("sum over x", ("sum_partials_f64",)))
+LAUNCH_STEPS = {torch.float32: TF32_LAUNCHES, torch.float64: F64_LAUNCHES}
 
 
-def _launch_device_ms(heff, theta, reps=20):
-    """Device ms of each launch of one float32 matvec, from
+def _launch_device_ms(heff, theta, steps, reps=20):
+    """Device ms per matvec of each step of ``steps``, from
     torch.profiler; None where the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -174,17 +201,17 @@ def _launch_device_ms(heff, theta, reps=20):
         torch.cuda.synchronize()
     events = prof.key_averages()
     times = {}
-    for step, names in TF32_LAUNCHES:
+    for step, names in steps:
         total = sum(getattr(ev, "device_time_total", 0) or 0
                     for ev in events if any(n in ev.key for n in names))
         times[step] = total / 1e3 / reps if total > 0 else None
     return times
 
 
-def time_kernel(host):
+def time_kernel(host, dtype):
     """CUDA-event times at the north-star shape; returns (kernel ms,
-    plain ms) of the float32 matvec."""
-    a, theta, b = (_cuda(x, torch.float32) for x in host)
+    plain ms) of the matvec in ``dtype``."""
+    a, theta, b = (_cuda(x, dtype) for x in host)
     heff = ck.prepare_sandwich(a, b)
     # plain, kernel, kernel, plain on the same operands
     times = {"plain": [], "kernel": []}
@@ -198,14 +225,15 @@ def time_kernel(host):
     flop = 2 * w * (M * K1 * K2 + M * K2 * N)
     kernel_ms = statistics.mean(times["kernel"])
     plain_ms = statistics.mean(times["plain"])
-    print(f"sandwich at {CHECK_SHAPES[0]} float32: kernel (prepared, "
-          f"3xTF32) {times['kernel']} ms ({flop / kernel_ms / 1e9:.2f} "
-          f"TFLOP/s), plain einsum {times['plain']} ms "
-          f"({flop / plain_ms / 1e9:.2f} TFLOP/s)", flush=True)
+    print(f"sandwich at {CHECK_SHAPES[0]} {dtype}: kernel (prepared, "
+          f"{KERNEL_KIND[dtype]}) {times['kernel']} ms "
+          f"({flop / kernel_ms / 1e9:.2f} TFLOP/s), plain einsum "
+          f"{times['plain']} ms ({flop / plain_ms / 1e9:.2f} TFLOP/s)",
+          flush=True)
     prep_ms = _event_ms(ck.prepare_sandwich, (a, b), reps=20)
-    print(f"  prepare step (pad, lay out, split, encode), once per local "
-          f"solve: {prep_ms:.4f} ms", flush=True)
-    steps = _launch_device_ms(heff, theta)
+    print(f"  prepare step, once per local solve: {prep_ms:.4f} ms",
+          flush=True)
+    steps = _launch_device_ms(heff, theta, LAUNCH_STEPS[dtype])
     for step, ms in steps.items():
         print(f"  {step}: " + ("device time not measured" if ms is None
                                else f"{ms:.4f} ms device time"),
@@ -213,14 +241,6 @@ def time_kernel(host):
     if all(steps.values()):
         print(f"  all launches: {sum(steps.values()):.4f} ms device time "
               f"per matvec", flush=True)
-    a64, theta64, b64 = (_cuda(x, torch.float64) for x in host)
-    heff64 = ck.prepare_sandwich(a64, b64)
-    f64_ms = _event_ms(heff64, (theta64,))
-    plain64_ms = _event_ms(ck.sandwich_matvec_reference,
-                           (a64, theta64, b64))
-    print(f"sandwich at {CHECK_SHAPES[0]} float64: kernel (FP64 SIMT) "
-          f"{f64_ms:.4f} ms ({flop / f64_ms / 1e9:.2f} TFLOP/s), plain "
-          f"einsum {plain64_ms:.4f} ms", flush=True)
     return kernel_ms, plain_ms
 
 
@@ -239,17 +259,19 @@ def host_f64_energy(As, Ws):
     return float(env.reshape(())) / float(nrm.reshape(()))
 
 
-def run_main_path():
-    """The DMRG2 main path; returns (dmrg, sandwich launches)."""
-    H = quimb_torch.MPO_ham_heis(L, dtype=torch.float32, device="cuda")
-    p0 = quimb_torch.MPS_rand_state(L, P0_BOND, seed=SEED,
-                                    dtype=torch.float32, device="cuda")
+def run_main_path(dtype):
+    """The DMRG2 main path on a state of ``dtype``; returns (dmrg, its
+    kernel's launches)."""
+    H = quimb_torch.MPO_ham_heis(L, dtype=dtype, device="cuda")
+    p0 = quimb_torch.MPS_rand_state(L, P0_BOND, seed=SEED, dtype=dtype,
+                                    device="cuda")
     dmrg = quimb_torch.DMRG2(H, bond_dims=CHI, cutoffs=0.0, p0=p0)
     opts = dmrg.opts
     min_launches = (max(2 * opts["local_eig_ncv"],
                         opts["local_eig_ncv_floor"])
                     * opts["local_eig_restarts"] * (L - 1))
     sweeps = [("R", mb) for mb in R_SCHEDULE] + [("L", CHI)]
+    kernel = KERNEL_NAME[dtype]
 
     torch.cuda.synchronize()
     for name in ck.LAUNCHES:
@@ -264,28 +286,29 @@ def run_main_path():
         dt = time.perf_counter() - t0
         dmrg.energies.append(en)
         n = {k: ck.LAUNCHES[k] - before[k] for k in before}
-        print(f"sweep {direction} max_bond={max_bond}: {dt:.3f} s, "
+        print(f"{dtype} sweep {direction} max_bond={max_bond}: {dt:.3f} s, "
               f"energy {en:.10f}, sandwich launches {n}", flush=True)
-        if n["sandwich_tf32"] < min_launches or n["sandwich_f64"]:
-            raise AssertionError(f"sweep launched the kernels {n}; the "
-                                 f"float32 one fewer than {min_launches} "
-                                 f"times, or the float64 one")
-    launches = ck.LAUNCHES["sandwich_tf32"]
-    print(f"main path: {time.perf_counter() - t_path:.3f} s, "
+        if n[kernel] < min_launches or sum(n.values()) != n[kernel]:
+            raise AssertionError(f"sweep launched the kernels {n}; "
+                                 f"{kernel} fewer than {min_launches} "
+                                 f"times, or another kernel")
+    launches = ck.LAUNCHES[kernel]
+    print(f"{dtype} main path: {time.perf_counter() - t_path:.3f} s, "
           f"sandwich launches {dict(ck.LAUNCHES)}", flush=True)
 
     for A in dmrg.state:
-        if not (A.shape[0] <= CHI and A.shape[2] <= CHI
+        if not (A.shape[0] <= CHI and A.shape[2] <= CHI and A.dtype == dtype
                 and bool(torch.isfinite(A).all())):
             raise AssertionError(f"bad site tensor {tuple(A.shape)}")
     t0 = time.perf_counter()
     e64 = host_f64_energy(dmrg.state, dmrg._W)
     rel = abs(e64 - E_REF) / abs(E_REF)
-    print(f"float64 host energy {e64:.10f} "
+    tol = E_REL_TOL[dtype]
+    print(f"{dtype} state, float64 host energy {e64:.10f} "
           f"({time.perf_counter() - t0:.1f} s): delta {e64 - E_REF:.3e}, "
-          f"relative {rel:.3e} (bound {E_REL_TOL:.0e}); last sweep "
+          f"relative {rel:.3e} (bound {tol:.0e}); last sweep "
           f"energy {dmrg.energies[-1]:.10f}", flush=True)
-    if not rel < E_REL_TOL:
+    if not rel < tol:
         raise AssertionError(f"energy {e64} misses E_REF {E_REF}")
     return dmrg, launches
 
@@ -333,7 +356,7 @@ def bond_breakdown(dmrg):
         "env step": lambda: D._env_step_right(lenv, torch.conj(N1), W1,
                                               N1),
     }
-    print(f"bulk bond {i} (theta {tuple(theta0.shape)}, float32), "
+    print(f"bulk bond {i} (theta {tuple(theta0.shape)}, {theta0.dtype}), "
           f"median wall ms:", flush=True)
     for name, fn in phases.items():
         print(f"  {name}: {_host_ms(fn):.3f}", flush=True)
@@ -343,19 +366,23 @@ def main():
     check_device()
     build_kernels()
     max_abs_err, north = check_kernel()
-    kernel_ms, plain_ms = time_kernel(north)
-    dmrg, launches = run_main_path()
+    times = {dtype: time_kernel(north, dtype) for dtype in KERNEL_TOLS}
+    dmrg, launches32 = run_main_path(torch.float32)
     bond_breakdown(dmrg)
+    del dmrg
+    dmrg, launches64 = run_main_path(torch.float64)
+    bond_breakdown(dmrg)
+    launches = {torch.float32: launches32, torch.float64: launches64}
     print(json.dumps({"kernels": [{
         "name": "sandwich_matvec",
         "route": "cuda",
-        "source": "quimb_torch/csrc/sandwich_tf32.cu",
+        "source": KERNEL_SOURCE[dtype],
         "replaces": "quimb_tpu/ops/pallas_kernels.py:68",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+        "launches": launches[dtype],
+        "max_abs_err": max_abs_err[dtype],
+        "ms": times[dtype][0],
+        "plain_ms": times[dtype][1],
+    } for dtype in KERNEL_TOLS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,9 @@
 //
 // It replaces the Pallas TPU kernel quimb_tpu/ops/pallas_kernels.py:
 // _sandwich_kernel (launched by sandwich_matvec there) for float32; the
-// float64 matvec stays on the FP64 SIMT kernel of sandwich.cu.
+// float64 matvec runs on the FP64 tensor cores in sandwich_f64.cu.
 //
-// What bounded the first port (sandwich.cu's FP32-FMA GEMM, 0.40 ms at
+// What bounded the first port (an FP32-FMA SIMT GEMM, 0.40 ms at
 // w = 5, M = K1 = K2 = N = 512 on an H100, 6.75 TFLOP/s):
 //   1. shared-memory traffic: 8 scalar shared loads per 16 FMAs;
 //   2. synchronous scalar global loads with one stage, so load latency

@@ -12,8 +12,8 @@ from the device and the dtype:
 - CPU tensors: :func:`prepare_sandwich_reference`, the plain einsum;
 - CUDA float32: :func:`prepare_sandwich_tf32`, the 3xTF32 tensor-core
   kernel of ``quimb_torch/csrc/sandwich_tf32.cu``;
-- CUDA float64: :func:`prepare_sandwich_f64`, the FP64 kernel of
-  ``quimb_torch/csrc/sandwich.cu``;
+- CUDA float64: :func:`prepare_sandwich_f64`, the FP64 tensor-core
+  (DMMA) kernel of ``quimb_torch/csrc/sandwich_f64.cu``;
 - anything else raises. There is no size gate and no switch: the kernels
   take every shape.
 
@@ -32,9 +32,10 @@ from . import _build
 #: may reset the counts.
 LAUNCHES = {"sandwich_tf32": 0, "sandwich_f64": 0}
 
-# the float32 kernel's stacks and scratch are zero-padded to whole tiles:
-# M and N to 128 (a wgmma n128 tile), K1 to 32 (one 128-byte stage), K2
-# to 64 (a warpgroup's 64 rows in pass 1, and whole stages in pass 2)
+# both kernels' stacks and scratch are zero-padded to whole tiles: M and N
+# to 128 (a wgmma n128 tile; the float64 kernel's 128 x 64 tiles), K1 to 32
+# (one 128-byte float32 stage, two float64 ones), K2 to 64 (a warpgroup's
+# 64 rows in pass 1, and whole stages in pass 2)
 _PAD_M, _PAD_K1, _PAD_K2, _PAD_N = 128, 32, 64, 128
 
 
@@ -49,14 +50,14 @@ def _roundup(n, m):
 
 
 def sandwich_padded_dims(M, K1, K2, N):
-    """(Mp, K1p, K2p, Np): the float32 kernel's padded sizes."""
+    """(Mp, K1p, K2p, Np): the kernels' padded sizes."""
     return (_roundup(M, _PAD_M), _roundup(K1, _PAD_K1),
             _roundup(K2, _PAD_K2), _roundup(N, _PAD_N))
 
 
 def sandwich_layout(a, b):
-    """The float32 kernel's layout of the stacks, in plain torch on any
-    device and dtype: a (w, M, K1) -> (w, Mp, K1p) and b (w, K2, N) ->
+    """The kernels' layout of the stacks, in plain torch on any device and
+    dtype: a (w, M, K1) -> (w, Mp, K1p) and b (w, K2, N) ->
     b transposed, (w, Np, K2p), both zero-padded. Then
     ``out = sum_x a_p[x] @ theta_p @ b_p[x].T`` with theta zero-padded to
     (K1p, K2p) holds ``sandwich_matvec(a, theta, b)`` in its (M, N)
@@ -119,7 +120,7 @@ def _check_kernel_target(device, dtype):
 def _library():
     lib = _build.load_library()
     sigs = {
-        "sandwich_matvec_f64": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        "sandwich_f64_apply": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
         + [ctypes.c_void_p],
         "sandwich_tf32_maps_bytes": [],
         "sandwich_tf32_encode": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5,
@@ -143,14 +144,24 @@ class _Prepared:
     """Stacks laid out for one kernel; calling it with theta (K1, K2)
     launches one matvec on the current stream and returns (M, N).
     The scratch is the operand set's own, so its matvecs run in stream
-    order on one stream."""
+    order on one stream. A subclass names its kernel's ``LAUNCHES`` key
+    and launches it in ``_launch(theta, out, stream)``, which returns the
+    kernel's error code."""
+
+    kernel = None
 
     def __init__(self, a, b):
         _check_kernel_target(a.device, a.dtype)
         if b.device != a.device or b.dtype != a.dtype:
             raise ValueError("sandwich operands must share device and dtype")
-        self.dims = _stack_dims(a, b)
+        self.dims = w, M, K1, K2, N = _stack_dims(a, b)
         self.device, self.dtype = a.device, a.dtype
+        Mp, K1p, K2p, Np = self.padded = sandwich_padded_dims(M, K1, K2, N)
+        if 2 * w * max(Mp, Np, K2p) >= 2**31:
+            raise ValueError(f"sandwich sizes out of range: w={w}, M={M}, "
+                             f"K1={K1}, K2={K2}, N={N}")
+        self._new = functools.partial(torch.empty, dtype=a.dtype,
+                                      device=a.device)
 
     def _check_theta(self, theta):
         _, _, K1, K2, _ = self.dims
@@ -162,24 +173,30 @@ class _Prepared:
         if not theta.is_contiguous():
             raise ValueError("theta must be contiguous")
 
-    def _stream(self):
-        return torch.cuda.current_stream(self.device).cuda_stream
+    def __call__(self, theta):
+        self._check_theta(theta)
+        _, M, _, _, N = self.dims
+        out = torch.empty((M, N), dtype=self.dtype, device=self.device)
+        with torch.cuda.device(self.device):
+            err = self._launch(
+                theta, out, torch.cuda.current_stream(self.device).cuda_stream)
+        _check_error(err, "launch")
+        LAUNCHES[self.kernel] += 1
+        return out
 
 
 class _PreparedTF32(_Prepared):
+    kernel = "sandwich_tf32"
+
     def __init__(self, a, b):
         super().__init__(a, b)
-        w, M, K1, K2, N = self.dims
-        Mp, K1p, K2p, Np = self.padded = sandwich_padded_dims(M, K1, K2, N)
-        if 2 * w * max(Mp, Np, K2p) >= 2**31:
-            raise ValueError(f"sandwich sizes out of range: w={w}, M={M}, "
-                             f"K1={K1}, K2={K2}, N={N}")
+        w = self.dims[0]
+        Mp, K1p, K2p, Np = self.padded
         ap, bp = sandwich_layout(a, b)
         self.a, self.b = tf32_split(ap), tf32_split(bp)
-        new = functools.partial(torch.empty, dtype=a.dtype, device=a.device)
-        self.theta_t = new((2, K2p, K1p))
-        self.t = new((2, Mp, w * K2p))
-        self.part = new((w, Mp, Np))
+        self.theta_t = self._new((2, K2p, K1p))
+        self.t = self._new((2, Mp, w * K2p))
+        self.part = self._new((w, Mp, Np))
         lib = _library()
         self._maps = ctypes.create_string_buffer(
             lib.sandwich_tf32_maps_bytes())
@@ -190,40 +207,30 @@ class _PreparedTF32(_Prepared):
                 self.t.data_ptr(), w, Mp, K1p, K2p, Np)
         _check_error(err, "tensor-map encoding")
 
-    def __call__(self, theta):
-        self._check_theta(theta)
-        w, M, K1, K2, N = self.dims
-        out = torch.empty((M, N), dtype=self.dtype, device=self.device)
-        with torch.cuda.device(self.device):
-            err = _library().sandwich_tf32_apply(
-                ctypes.addressof(self._maps), theta.data_ptr(),
-                self.theta_t.data_ptr(), self.t.data_ptr(),
-                self.part.data_ptr(), out.data_ptr(), w, M, K1, K2, N,
-                *self.padded, self._stream())
-        _check_error(err, "launch")
-        LAUNCHES["sandwich_tf32"] += 1
-        return out
+    def _launch(self, theta, out, stream):
+        return _library().sandwich_tf32_apply(
+            ctypes.addressof(self._maps), theta.data_ptr(),
+            self.theta_t.data_ptr(), self.t.data_ptr(), self.part.data_ptr(),
+            out.data_ptr(), *self.dims, *self.padded, stream)
 
 
 class _PreparedF64(_Prepared):
+    kernel = "sandwich_f64"
+
     def __init__(self, a, b):
         super().__init__(a, b)
-        w, M, _, K2, _ = self.dims
-        self.a, self.b = a.contiguous(), b.contiguous()
-        self.t = torch.empty((M, w * K2), dtype=a.dtype, device=a.device)
+        w = self.dims[0]
+        Mp, K1p, K2p, Np = self.padded
+        self.a, self.b = sandwich_layout(a, b)
+        self.theta_t = self._new((K2p, K1p))
+        self.t = self._new((w, Mp, K2p))
+        self.part = self._new((w, Mp, Np))
 
-    def __call__(self, theta):
-        self._check_theta(theta)
-        w, M, K1, K2, N = self.dims
-        out = torch.empty((M, N), dtype=self.dtype, device=self.device)
-        with torch.cuda.device(self.device):
-            err = _library().sandwich_matvec_f64(
-                self.a.data_ptr(), theta.data_ptr(), self.b.data_ptr(),
-                self.t.data_ptr(), out.data_ptr(), w, M, K1, K2, N,
-                self._stream())
-        _check_error(err, "launch")
-        LAUNCHES["sandwich_f64"] += 1
-        return out
+    def _launch(self, theta, out, stream):
+        return _library().sandwich_f64_apply(
+            theta.data_ptr(), self.theta_t.data_ptr(), self.a.data_ptr(),
+            self.b.data_ptr(), self.t.data_ptr(), self.part.data_ptr(),
+            out.data_ptr(), *self.dims, *self.padded, stream)
 
 
 def prepare_sandwich_reference(a, b):
@@ -240,7 +247,9 @@ def prepare_sandwich_tf32(a, b):
 
 
 def prepare_sandwich_f64(a, b):
-    """Prepare float64 CUDA stacks for the FP64 kernel."""
+    """Prepare float64 CUDA stacks for the FP64 tensor-core kernel: pad
+    and lay them out once (:func:`sandwich_layout`) and allocate the
+    scratch."""
     return _PreparedF64(a, b)
 
 

@@ -1,6 +1,6 @@
 """quimb_torch on a CUDA GPU: the hand-written sandwich kernels (3xTF32
-for float32, FP64 for float64) against their plain version, and a small
-DMRG2 run against the CPU port.
+for float32, FP64 tensor cores for float64) against their plain version,
+and small DMRG2 runs against the CPU port.
 
 Every test here needs a GPU and skips without one. The file imports no
 JAX; on a GPU machine run it without the JAX setup of the test
@@ -57,7 +57,7 @@ def test_kernel_matches_plain(cuda, shape, dtype, tol):
                            + 1}
     assert got.dtype == dtype and got.shape == (M, N)
     # relative Frobenius error against float64: float32 sums over depths
-    # up to 5 * 512 in 3xTF32, float64 ones in FP64 FMA
+    # up to 5 * 512 in 3xTF32, float64 ones on the FP64 tensor cores
     rel = torch.linalg.norm(got.double() - ref) / torch.linalg.norm(ref)
     assert rel.item() <= tol
 
@@ -147,3 +147,28 @@ def test_dmrg_float32_through_tf32_kernel(cuda):
     # from a random state, follow other float32 and float64 paths)
     np.testing.assert_allclose(energies["cuda"][-2:], energies["cpu"][-2:],
                                rtol=2e-5)
+
+
+def test_dmrg_float64_through_dmma_kernel(cuda):
+    """A float64 DMRG2 run on the card goes through the FP64 tensor-core
+    kernel at every matvec, never through the float32 one, and gives the
+    CPU port's energies."""
+    energies = {}
+    for device in ("cpu", cuda):
+        H = quimb_torch.MPO_ham_heis(16, dtype=torch.float64, device=device)
+        p0 = quimb_torch.MPS_rand_state(16, 8, seed=2, dtype=torch.float64,
+                                        device=device)
+        dmrg = quimb_torch.DMRG2(H, bond_dims=16, cutoffs=0.0, p0=p0)
+        energies[str(device)] = []
+        for d in "RLRL":
+            before = dict(ck.LAUNCHES)
+            energies[str(device)].append(
+                dmrg.sweep(d, max_bond=16, cutoff=0.0, canonize=d == "R"))
+            if device == cuda:
+                n = ck.LAUNCHES["sandwich_f64"] - before["sandwich_f64"]
+                # ncv (8) matvecs at each of the 15 bonds
+                assert n >= 8 * 15
+                assert ck.LAUNCHES["sandwich_tf32"] == before["sandwich_tf32"]
+    # float64 on both; the sums run in other orders
+    np.testing.assert_allclose(energies["cuda"], energies["cpu"],
+                               rtol=1e-10)
