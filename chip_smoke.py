@@ -5,40 +5,66 @@ GPU and the CUDA toolkit::
 
     python3 chip_smoke.py
 
-It drives the DMRG2 ground-state search of the spin-1/2 Heisenberg chain
-at L=128, chi=256 through the package's entry points (``MPO_ham_heis``,
-``MPS_rand_state``, ``DMRG2.sweep``), twice: on a float32 state, with
-every effective-Hamiltonian matvec in the hand-written 3xTF32 sandwich
-kernel, and on a float64 state, with every matvec in the hand-written
-FP64 tensor-core (DMMA) kernel. Its phases, each fatal on failure:
+It drives the 1D ground-state engine of the spin-1/2 Heisenberg chain at
+L=128, chi=256 through the package's entry points (``MPO_ham_heis``,
+``MPS_rand_state``, ``DMRG2``, ``DMRG1``, ``ParallelDMRG``): DMRG2 on a
+float32 state, with every effective-Hamiltonian matvec in the
+hand-written 3xTF32 sandwich kernel, then ParallelDMRG from that state;
+DMRG2 on a float64 state, with every matvec in the hand-written FP64
+tensor-core (DMMA) kernel, then DMRG1 from that state. Its phases, each
+fatal on failure:
 
 1. the device: a CUDA GPU is required; its name and power limit are
    printed;
 2. the build of ``quimb_torch/csrc`` with nvcc, timed; ptxas must report
    no spills, and the float64 kernel's SASS must hold DMMA instructions;
 3. the kernels against their plain einsum (in float64) on the card, in
-   float32 (3xTF32) and float64 (DMMA) at the main paths' shapes; two
+   float32 (3xTF32) and float64 (DMMA) at the paths' shapes; two
    applications of one prepared operand set, and a one-shot call, must
    agree bitwise; for each dtype, CUDA-event times of the matvec and the
    plain einsum at the north-star shape, in the order plain, kernel,
    kernel, plain, the prepare step's time and each launch's device time
    (``torch.profiler``);
-4. the float32 main path: right sweeps at max_bond 64, 128, 256, 256,
+4. the float32 DMRG2 path: right sweeps at max_bond 64, 128, 256, 256,
    256, then one left sweep; each sweep must launch the float32 kernel
    at least ncv * restarts * (L - 1) times and the float64 one never;
    the final state's energy, evaluated in float64 on the host, must lie
    within a relative 2e-5 of E_REF;
 5. where one bulk bond's time goes, phase by phase;
-6. the float64 path: the same schedule on a float64 state; each sweep
-   must launch the float64 kernel at least ncv * restarts * (L - 1)
-   times and the float32 one never; the host energy must lie within a
-   relative 1e-6 of E_REF; then phase 5 on one of its bulk bonds.
+6. the split methods at that bond's updated theta, with the center of
+   the state at the bond: ``svd`` (cutoff 0 and 1e-10), ``svd:eig``,
+   ``svd:sub`` (cutoff 1e-10) and ``svd:sub0``, each timed, with its
+   residual and the orthogonality of its isometric factor; the factors
+   must be finite and the isometric one orthogonal to 1e-4 (float32) or
+   1e-10 (float64); in float64 the ``svd:eig`` residual must lie within
+   1 % of ``gesvd``'s, and a subspace method's within twice ``gesvd``'s
+   at the same cutoff (or within ``gesvd``'s plus 1.5e-8, the float64
+   floor of a gram-matrix method);
+7. the ParallelDMRG path from the float32 DMRG2 state, with bench.py's
+   settings (S=2 segments, ncv=8, 3 inner passes): two outer sweeps,
+   each launching the float32 kernel at least (2 * 3 + 1) * S' * 63 * 8
+   times (S' its count of segments: 2, then 1 at the offset) and the
+   float64 one never; the final state's host energy within a relative
+   2e-5 of E_REF;
+8. the float64 DMRG2 path: the schedule of phase 4 on a float64 state;
+   each sweep must launch the float64 kernel at least ncv * restarts *
+   (L - 1) times and the float32 one never; the host energy must lie
+   within a relative 1e-6 of E_REF; then phases 5 and 6 on one of its
+   bulk bonds;
+9. the DMRG1 path from the float64 DMRG2 state: one right and one left
+   sweep at max_bond 256, each launching the float64 kernel once per
+   Lanczos vector at every site (8, and 4 at each chain end, whose
+   one-site space has dimension 4) and the float32 one never; the host
+   energy within a relative 1e-6 of E_REF, and no more than 1e-9
+   relative above the DMRG2 state's.
 
 The line before the last is the kernels' JSON summary, one entry per
-kernel with its launches on its own path; the last line is
+kernel with its launches on its paths (DMRG2 and ParallelDMRG for
+float32, DMRG2 and DMRG1 for float64); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import json
 import re
 import statistics
@@ -52,8 +78,10 @@ import torch
 import quimb_torch
 from quimb_torch.ops import _build
 from quimb_torch.ops import cuda_kernels as ck
+from quimb_torch.ops import decomp
 from quimb_torch.ops.backend import to_host
 from quimb_torch.tensor.tn1d import dmrg as D
+from quimb_torch.tensor.tn1d.dmrg_parallel import ParallelDMRG
 
 L, CHI, P0_BOND, SEED = 128, 256, 32, 42
 R_SCHEDULE = (64, 128, 256, 256, 256)
@@ -273,9 +301,7 @@ def run_main_path(dtype):
     sweeps = [("R", mb) for mb in R_SCHEDULE] + [("L", CHI)]
     kernel = KERNEL_NAME[dtype]
 
-    torch.cuda.synchronize()
-    for name in ck.LAUNCHES:
-        ck.LAUNCHES[name] = 0
+    _reset_launches()
     t_path = time.perf_counter()
     for direction, max_bond in sweeps:
         before = dict(ck.LAUNCHES)
@@ -285,13 +311,9 @@ def run_main_path(dtype):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         dmrg.energies.append(en)
-        n = {k: ck.LAUNCHES[k] - before[k] for k in before}
+        n = _sweep_launches(kernel, before, min_launches, "DMRG2 sweep")
         print(f"{dtype} sweep {direction} max_bond={max_bond}: {dt:.3f} s, "
               f"energy {en:.10f}, sandwich launches {n}", flush=True)
-        if n[kernel] < min_launches or sum(n.values()) != n[kernel]:
-            raise AssertionError(f"sweep launched the kernels {n}; "
-                                 f"{kernel} fewer than {min_launches} "
-                                 f"times, or another kernel")
     launches = ck.LAUNCHES[kernel]
     print(f"{dtype} main path: {time.perf_counter() - t_path:.3f} s, "
           f"sandwich launches {dict(ck.LAUNCHES)}", flush=True)
@@ -300,16 +322,9 @@ def run_main_path(dtype):
         if not (A.shape[0] <= CHI and A.shape[2] <= CHI and A.dtype == dtype
                 and bool(torch.isfinite(A).all())):
             raise AssertionError(f"bad site tensor {tuple(A.shape)}")
-    t0 = time.perf_counter()
-    e64 = host_f64_energy(dmrg.state, dmrg._W)
-    rel = abs(e64 - E_REF) / abs(E_REF)
-    tol = E_REL_TOL[dtype]
-    print(f"{dtype} state, float64 host energy {e64:.10f} "
-          f"({time.perf_counter() - t0:.1f} s): delta {e64 - E_REF:.3e}, "
-          f"relative {rel:.3e} (bound {tol:.0e}); last sweep "
-          f"energy {dmrg.energies[-1]:.10f}", flush=True)
-    if not rel < tol:
-        raise AssertionError(f"energy {e64} misses E_REF {E_REF}")
+    _check_energy(dmrg.state, dmrg._W, dtype,
+                  f"{dtype} DMRG2 state (last sweep energy "
+                  f"{dmrg.energies[-1]:.10f})")
     return dmrg, launches
 
 
@@ -325,13 +340,32 @@ def _host_ms(fn, reps=5):
     return statistics.median(out[1:])
 
 
+def _mixed_canonical_bond(dmrg, i):
+    """The environments and two-site tensor of bond (i, i + 1) with the
+    orthogonality center there, as a right sweep meets it: the state
+    after a left sweep is right-canonical, and QR moves its center from
+    site 0 to site i. Returns (lenv, renv, theta0)."""
+    As = list(dmrg.state)
+    for j in range(i):
+        l, p, r = As[j].shape
+        Q, _, Rf = decomp.qr_stabilized(As[j].reshape(l * p, r))
+        As[j] = Q.reshape(l, p, Q.shape[-1])
+        As[j + 1] = torch.einsum("ck,kpr->cpr", Rf, As[j + 1])
+    lenv = dmrg._ones_env()
+    for j in range(i):
+        lenv = D._env_step_right(lenv, torch.conj(As[j]), dmrg._W[j], As[j])
+    renv = dmrg._ones_env()
+    for j in range(L - 1, i + 1, -1):
+        renv = D._env_step_left(renv, torch.conj(As[j]), dmrg._W[j], As[j])
+    return lenv, renv, torch.einsum("kpc,cqr->kpqr", As[i], As[i + 1])
+
+
 def bond_breakdown(dmrg):
-    """Wall time of each phase of one bulk bond update at chi=256."""
+    """Wall time of each phase of one bulk bond update at chi=256;
+    returns the updated two-site tensor."""
     i = L // 2
-    lenv = dmrg._build_left_envs()[i]
-    renv = dmrg._build_right_envs()[i + 2]
+    lenv, renv, theta0 = _mixed_canonical_bond(dmrg, i)
     W1, W2 = dmrg._W[i], dmrg._W[i + 1]
-    theta0 = torch.einsum("kpc,cqr->kpqr", dmrg._A[i], dmrg._A[i + 1])
     kw = dmrg._solve_opts()
     _, theta = D._local_solve_2site(lenv, W1, W2, renv, theta0, **kw)
     N1, _, _ = D._split_2site(theta, CHI, 0.0, "right")
@@ -360,6 +394,182 @@ def bond_breakdown(dmrg):
           f"median wall ms:", flush=True)
     for name, fn in phases.items():
         print(f"  {name}: {_host_ms(fn):.3f}", flush=True)
+    return theta
+
+
+# (method, cutoff) of each split; "svd" at both cutoffs is the reference
+# of the methods at the same cutoff ("svd:sub0" has none: it keeps max_bond)
+SPLITS = (("svd", 0.0), ("svd", 1e-10), ("svd:eig", 0.0),
+          ("svd:sub", 1e-10), ("svd:sub0", 0.0))
+# ||U^T U - I||_2 (the spectral norm: how far the kept columns are from
+# an isometry, whatever their count) of the isometric factor
+ORTHO_TOLS = {torch.float32: 1e-4, torch.float64: 1e-10}
+
+
+def check_splits(theta):
+    """Each split method at one updated bulk theta, absorb "right" (A1
+    isometric): median wall ms, relative residual ||theta - A1 A2|| /
+    ||theta|| and orthogonality of A1, with the gates of phase 6."""
+    dtype = theta.dtype
+    th = theta.double()
+    res = {}
+    print(f"splits of theta {tuple(theta.shape)} {dtype} to max_bond {CHI}, "
+          f"absorb right:", flush=True)
+    for method, cutoff in SPLITS:
+        split = functools.partial(D._split_2site, theta, CHI, cutoff, "right",
+                                  method=method)
+        A1, A2, rank = split()
+        ms = _host_ms(split)
+        r = int(rank)
+        finite = bool(torch.isfinite(A1).all()) and bool(
+            torch.isfinite(A2).all())
+        prod = torch.einsum("kpc,cqr->kpqr", A1.double(), A2.double())
+        res[method, cutoff] = (torch.linalg.norm(th - prod)
+                               / torch.linalg.norm(th)).item()
+        # the kept columns: the mask zeroes the others, and in float32 the
+        # cumulative sum that sets it need not keep a prefix
+        U = A1.reshape(-1, A1.shape[-1]).double()
+        nonzero = torch.linalg.norm(U, dim=0) > 0
+        U = U[:, nonzero]
+        kept = U.shape[1]
+        E = U.T @ U - torch.eye(kept, dtype=U.dtype, device=U.device)
+        orth = torch.linalg.matrix_norm(E, 2).item()
+        print(f"  {method} (cutoff {cutoff:g}): {ms:.3f} ms, rank {r}, "
+              f"last kept column {int(torch.nonzero(nonzero).max()) + 1}, "
+              f"residual {res[method, cutoff]:.6e}, ||U^T U - I|| "
+              f"{orth:.3e} (2-norm), {torch.linalg.norm(E).item():.3e} "
+              f"(Frobenius), finite {finite}", flush=True)
+        if kept != r:
+            raise AssertionError(f"split {method}: rank {r} but {kept} "
+                                 f"nonzero columns")
+        if not finite:
+            raise AssertionError(f"split {method}: factors not finite")
+        if not orth <= ORTHO_TOLS[dtype]:
+            raise AssertionError(f"split {method}: isometric factor off by "
+                                 f"{orth:.3e}")
+    if dtype != torch.float64:
+        return
+    # float64 only: the float32 gram matrix loses the values below
+    # sqrt(eps) s_0, a property of the method (printed, not gated). In
+    # float64 that floor is sqrt(eps) = 1.5e-8 relative: a bound never
+    # asks a gram-matrix method for less than gesvd's residual plus it
+    floor = torch.finfo(torch.float64).eps ** 0.5
+
+    def bound(factor, cutoff):
+        return max(factor * res["svd", cutoff], res["svd", cutoff] + floor)
+
+    if not res["svd:eig", 0.0] <= bound(1.01, 0.0):
+        raise AssertionError("svd:eig's residual exceeds gesvd's by > 1 %")
+    for key in (("svd:sub", 1e-10), ("svd:sub0", 0.0)):
+        if not res[key] <= bound(2, key[1]):
+            raise AssertionError(f"{key[0]}'s residual exceeds twice "
+                                 f"gesvd's")
+
+
+def _reset_launches():
+    torch.cuda.synchronize()
+    for name in ck.LAUNCHES:
+        ck.LAUNCHES[name] = 0
+
+
+def _sweep_launches(kernel, before, at_least, what):
+    """The launches since ``before``, by kernel; fails unless ``kernel``
+    has at least ``at_least`` and no other kernel has any."""
+    n = {k: ck.LAUNCHES[k] - before[k] for k in before}
+    if n[kernel] < at_least or sum(n.values()) != n[kernel]:
+        raise AssertionError(f"{what} launched the kernels {n}; {kernel} "
+                             f"fewer than {at_least} times, or another "
+                             f"kernel")
+    return n
+
+
+def _check_energy(state, Ws, dtype, what):
+    """The host float64 energy of ``state`` against E_REF."""
+    t0 = time.perf_counter()
+    e64 = host_f64_energy(state, Ws)
+    rel = abs(e64 - E_REF) / abs(E_REF)
+    tol = E_REL_TOL[dtype]
+    print(f"{what}: float64 host energy {e64:.10f} "
+          f"({time.perf_counter() - t0:.1f} s): delta {e64 - E_REF:.3e}, "
+          f"relative {rel:.3e} (bound {tol:.0e})", flush=True)
+    if not rel < tol:
+        raise AssertionError(f"{what}: energy {e64} misses E_REF {E_REF}")
+    return e64
+
+
+PAR_SEGMENTS, PAR_NCV, PAR_INNER, PAR_SWEEPS = 2, 8, 3, 2
+
+
+def run_parallel_path(dmrg2):
+    """ParallelDMRG from the float32 DMRG2 state (bench.py:239-245);
+    returns its float32 kernel launches."""
+    Ws = dmrg2._W
+    pd = ParallelDMRG(dmrg2.state, Ws, max_bond=CHI, n_segments=PAR_SEGMENTS,
+                      ncv=PAR_NCV, inner_passes=PAR_INNER)
+    _reset_launches()
+    t_path = time.perf_counter()
+    for _ in range(PAR_SWEEPS):
+        # the segments of this outer sweep: the offset alternates by half
+        # a segment (ParallelDMRG.sweep)
+        off = (pd.m // 2) * (pd._phase % 2)
+        n_seg = len(range(off, pd.L - pd.m + 1, pd.m))
+        at_least = (2 * PAR_INNER + 1) * n_seg * (pd.m - 1) * PAR_NCV
+        before = dict(ck.LAUNCHES)
+        t0 = time.perf_counter()
+        en = pd.sweep()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = _sweep_launches("sandwich_tf32", before, at_least,
+                            "parallel outer sweep")
+        print(f"ParallelDMRG outer sweep (offset {off}, {n_seg} segments): "
+              f"{dt:.3f} s, energy {en:.10f}, sandwich launches {n} "
+              f"(at least {at_least})", flush=True)
+    launches = ck.LAUNCHES["sandwich_tf32"]
+    print(f"ParallelDMRG path: {time.perf_counter() - t_path:.3f} s, "
+          f"sandwich launches {dict(ck.LAUNCHES)}", flush=True)
+    state = pd.get_state()
+    for A in state:
+        if not bool(torch.isfinite(A).all()):
+            raise AssertionError(f"bad site tensor {tuple(A.shape)}")
+    _check_energy(state, Ws, torch.float32, "ParallelDMRG float32 state")
+    return launches
+
+
+def run_dmrg1_path(dmrg2):
+    """DMRG1 from the float64 DMRG2 state; returns its float64 kernel
+    launches."""
+    Ws = dmrg2._W
+    e2 = host_f64_energy(dmrg2.state, Ws)
+    dmrg = quimb_torch.DMRG1(Ws, bond_dims=CHI, cutoffs=0.0, p0=dmrg2.state)
+    opts = dmrg.opts
+    ncv = max(2 * opts["local_eig_ncv"], opts["local_eig_ncv_floor"])
+    _reset_launches()
+    t_path = time.perf_counter()
+    for direction in "RL":
+        # one launch per Lanczos vector; the basis stops at the dimension
+        # of the one-site space, 4 at a chain end
+        at_least = opts["local_eig_restarts"] * sum(
+            min(ncv, A.numel()) for A in dmrg.state)
+        before = dict(ck.LAUNCHES)
+        t0 = time.perf_counter()
+        en = dmrg.sweep(direction, max_bond=CHI, cutoff=0.0,
+                        canonize=direction == "R")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = _sweep_launches("sandwich_f64", before, at_least, "DMRG1 sweep")
+        print(f"DMRG1 sweep {direction} max_bond={CHI}: {dt:.3f} s, energy "
+              f"{en:.10f}, sandwich launches {n} (at least {at_least})",
+              flush=True)
+    launches = ck.LAUNCHES["sandwich_f64"]
+    print(f"DMRG1 path: {time.perf_counter() - t_path:.3f} s, sandwich "
+          f"launches {dict(ck.LAUNCHES)}", flush=True)
+    e1 = _check_energy(dmrg.state, Ws, torch.float64, "DMRG1 float64 state")
+    rise = (e1 - e2) / abs(e2)
+    print(f"DMRG1 energy against the DMRG2 state's {e2:.10f}: relative "
+          f"change {rise:.3e} (rise bound 1e-9)", flush=True)
+    if not rise <= 1e-9:
+        raise AssertionError("DMRG1 raised the DMRG2 state's energy")
+    return launches
 
 
 def main():
@@ -367,12 +577,14 @@ def main():
     build_kernels()
     max_abs_err, north = check_kernel()
     times = {dtype: time_kernel(north, dtype) for dtype in KERNEL_TOLS}
-    dmrg, launches32 = run_main_path(torch.float32)
-    bond_breakdown(dmrg)
+    launches = {}
+    dmrg, launches[torch.float32] = run_main_path(torch.float32)
+    check_splits(bond_breakdown(dmrg))
+    launches[torch.float32] += run_parallel_path(dmrg)
     del dmrg
-    dmrg, launches64 = run_main_path(torch.float64)
-    bond_breakdown(dmrg)
-    launches = {torch.float32: launches32, torch.float64: launches64}
+    dmrg, launches[torch.float64] = run_main_path(torch.float64)
+    check_splits(bond_breakdown(dmrg))
+    launches[torch.float64] += run_dmrg1_path(dmrg)
     print(json.dumps({"kernels": [{
         "name": "sandwich_matvec",
         "route": "cuda",

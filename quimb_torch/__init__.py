@@ -7,6 +7,6 @@ the GPU. The package imports torch, never JAX.
 """
 
 from . import config  # noqa: F401  (precision setup, before any product)
-from .tensor import DMRG2, MPO_ham_heis, MPS_rand_state
+from .tensor import DMRG1, DMRG2, MPO_ham_heis, MPS_rand_state
 
-__all__ = ["DMRG2", "MPO_ham_heis", "MPS_rand_state"]
+__all__ = ["DMRG1", "DMRG2", "MPO_ham_heis", "MPS_rand_state"]

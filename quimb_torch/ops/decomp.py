@@ -1,8 +1,11 @@
-"""Truncated SVD and sign-fixed QR / LQ, the splits of the DMRG main path.
+"""Truncated splits and sign-fixed QR / LQ, the splits of the DMRG engines.
 
-Port of the matching parts of ``quimb_tpu/ops/decomp.py``. The TPU's
-square-padding shims and its triangular-matmul cumsum are not needed:
-cuSOLVER and LAPACK take rectangular SVD and QR as they are.
+Port of the matching parts of ``quimb_tpu/ops/decomp.py``: the masked
+truncated SVD, its gram-matrix ``eigh`` variant (``svd:eig``), the
+randomized-subspace variants (``svd:sub``, ``svd:sub0``) and QR / LQ with
+fixed signs. The TPU's square-padding shims, its re-orthogonalising QR
+and its triangular-matmul cumsum are not needed: cuSOLVER and LAPACK take
+rectangular factorizations as they are.
 """
 
 import torch
@@ -63,6 +66,30 @@ def sgn(x):
     ones = torch.ones_like(x)
     x0 = torch.where(x == 0, ones, x)
     return torch.where(x == 0, ones, x0 / torch.abs(x0))
+
+
+def _random_start(shape, dtype, device, seed):
+    """Standard normal draws from a generator of ``device`` seeded with
+    ``seed``: the same numbers at every call with the same arguments."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return torch.randn(shape, generator=gen, dtype=dtype, device=device)
+
+
+# -- factorizations ----------------------------------------------------------
+
+
+def safe_qr(x):
+    """Reduced QR of (a batch of) matrices. quimb_tpu pads rectangular
+    inputs to square ones and orthogonalises twice on the TPU; LAPACK and
+    cuSOLVER need neither."""
+    return torch.linalg.qr(x)
+
+
+def safe_eigh(x):
+    """Hermitian eigendecomposition of (a batch of) matrices, eigenvalues
+    ascending."""
+    return torch.linalg.eigh(x)
 
 
 # -- QR / LQ -----------------------------------------------------------------
@@ -158,3 +185,144 @@ def _truncate_mask_absorb(U, s, VH, max_bond, cutoff, cutoff_mode,
         return U * mU, s_out, ldmul(s_out, VH) * mV, rank
     else:
         return U * mU, s_out, VH * mV, rank
+
+
+# -- gram-matrix and randomized-subspace splits ------------------------------
+
+
+def _gram_eigh(G):
+    """``eigh`` of the gram matrix ``G`` as singular values: (s, s_safe,
+    W), the values descending, the same with those below eps set to 1
+    (safe to divide by), and their vectors."""
+    el, W = safe_eigh(G)
+    el, W = torch.flip(el, (-1,)), torch.flip(W, (-1,))
+    s = torch.sqrt(torch.clamp(el, min=0.0))
+    eps = torch.finfo(s.dtype).eps
+    return s, torch.where(s > eps, s, torch.ones_like(s)), W
+
+
+def _eig_factors(x, absorb):
+    """Thin SVD factors of ``x`` from a hermitian ``eigh`` of its gram
+    matrix, singular values descending. The side is chosen so that the
+    factor that must stay isometric comes from the ``eigh`` itself: the
+    ``x† x`` side (V) for ``absorb="left"``, the ``x x†`` side (U)
+    otherwise. The other factor is recovered by division, and its noise
+    below about sqrt(eps) s_0 is what the absorbed ``s`` rescales."""
+    if absorb == "left":
+        s, s_safe, V = _gram_eigh(dag(x) @ x)
+        return (x @ V) / s_safe[..., None, :], s, dag(V)
+    s, s_safe, U = _gram_eigh(x @ dag(x))
+    return U, s, (dag(U) @ x) / s_safe[..., :, None]
+
+
+def svd_truncated_masked_eig(
+    x, max_bond, cutoff=0.0, cutoff_mode=4, renorm=0, absorb="both"
+):
+    """:func:`svd_truncated_masked` through a hermitian ``eigh`` of the
+    gram matrix (``svd:eig``), with the same masks and absorb modes. The
+    gram matrix squares the condition number: singular values below
+    about sqrt(eps) s_0 come out as noise, but the isometric factor stays
+    exactly isometric (:func:`_eig_factors`)."""
+    U, s, VH = _eig_factors(x, absorb)
+    # the gram side can exceed the rank side: cap at min(m, n) so that
+    # the shapes match the plain SVD's
+    kmax = min(x.shape[-2], x.shape[-1])
+    return _truncate_mask_absorb(
+        U[..., :, :kmax], s[..., :kmax], VH[..., :kmax, :],
+        max_bond=max_bond, cutoff=cutoff, cutoff_mode=cutoff_mode,
+        renorm=renorm, absorb=absorb,
+    )
+
+
+def _subspace_basis(G, k, iters, dtype, omega=None):
+    """Orthonormal basis (m, k) of the dominant ``k``-dimensional
+    eigenspace of the PSD matrix ``G`` (m, m) by subspace iteration: each
+    round is one (m, m, k) product and one tall QR. ``omega`` (m, k) is
+    the start; without it, standard normal draws from a generator of
+    ``G``'s device seeded 0, so every call is repeatable. (quimb_tpu
+    draws from ``jax.random.PRNGKey(0)``, which torch cannot reproduce;
+    pass its draw as ``omega`` to follow it.)"""
+    m = G.shape[-1]
+    if omega is None:
+        omega = _random_start((*G.shape[:-2], m, k), G.real.dtype,
+                              G.device, seed=0)
+    V = omega.to(dtype)
+    for _ in range(max(iters, 1)):
+        Q, _ = safe_qr(G @ V)
+        V = Q[..., :, :k]
+    return V
+
+
+def _bond_sizes(x, max_bond, oversample):
+    """(k, kp, kmax): the kept rank, the iterated rank with its
+    oversampling, and min(m, n)."""
+    kmax = min(x.shape[-2], x.shape[-1])
+    k = min(max_bond, kmax) if (max_bond and max_bond > 0) else kmax
+    return k, min(k + max(oversample, 0), kmax), kmax
+
+
+def svd_truncated_masked_subspace(
+    x, max_bond, cutoff=0.0, cutoff_mode=4, renorm=0, absorb="both",
+    iters=2, oversample=8, omega=None,
+):
+    """Truncated SVD by randomized subspace iteration plus a
+    Rayleigh-Ritz step of size ``max_bond + oversample`` (``svd:sub``),
+    with the masks and absorb modes of :func:`svd_truncated_masked_eig`.
+    ``omega`` is the start of :func:`_subspace_basis`: (n, kp) for
+    ``absorb="left"``, (m, kp) otherwise. Where ``max_bond`` cuts
+    nothing, this is :func:`svd_truncated_masked_eig`."""
+    k, kp, kmax = _bond_sizes(x, max_bond, oversample)
+    if k >= kmax:
+        return svd_truncated_masked_eig(
+            x, max_bond=max_bond, cutoff=cutoff, cutoff_mode=cutoff_mode,
+            renorm=renorm, absorb=absorb,
+        )
+    if absorb == "left":
+        # the dominant row space: VH = dag(basis) stays isometric
+        Vr = _subspace_basis(dag(x) @ x, kp, iters, x.dtype, omega)
+        B = x @ Vr                                   # (m, kp)
+        s, s_safe, W = _gram_eigh(dag(B) @ B)        # (kp, kp)
+        U, VH = (B @ W) / s_safe[..., None, :], dag(Vr @ W)
+    else:
+        # the dominant column space: U = basis stays isometric
+        V = _subspace_basis(x @ dag(x), kp, iters, x.dtype, omega)
+        B = dag(V) @ x                               # (kp, n)
+        s, s_safe, W = _gram_eigh(B @ dag(B))        # (kp, kp)
+        U, VH = V @ W, (dag(W) @ B) / s_safe[..., :, None]
+    return _truncate_mask_absorb(
+        U, s, VH, max_bond=k, cutoff=cutoff, cutoff_mode=cutoff_mode,
+        renorm=renorm, absorb=absorb,
+    )
+
+
+def split_truncated_subspace(x, max_bond, absorb="right", iters=2,
+                             oversample=8, omega=None):
+    """Rank-``max_bond`` split ``x ~= U @ VH`` with no cutoff mask
+    (``svd:sub0``): the isometric factor is an orthonormal basis of the
+    dominant subspace, from an oversampled subspace iteration and, when
+    ``oversample > 0``, a Rayleigh-Ritz rotation of size
+    ``max_bond + oversample`` that drops the padding directions. The
+    bond basis is pure gauge, so no singular value is needed. Returns
+    ``(U, None, VH, rank)`` like the masked drivers; ``omega`` as in
+    :func:`svd_truncated_masked_subspace`. ``x`` may carry leading batch
+    dimensions, which one ``omega`` serves."""
+    k, kp, kmax = _bond_sizes(x, max_bond, oversample)
+    if k >= kmax:
+        return svd_truncated_masked_eig(x, max_bond=k, cutoff=0.0,
+                                        absorb=absorb)
+    if absorb == "left":
+        Vr = _subspace_basis(dag(x) @ x, kp, iters, x.dtype, omega)
+        if kp > k:
+            B = x @ Vr                               # (m, kp)
+            _, W = safe_eigh(dag(B) @ B)             # (kp, kp)
+            Vr = Vr @ torch.flip(W, (-1,))[..., :, :k]
+        U, VH = x @ Vr, dag(Vr)
+    else:
+        V = _subspace_basis(x @ dag(x), kp, iters, x.dtype, omega)
+        if kp > k:
+            B = dag(V) @ x                           # (kp, n)
+            _, W = safe_eigh(B @ dag(B))             # (kp, kp)
+            V = V @ torch.flip(W, (-1,))[..., :, :k]
+        U, VH = V, dag(V) @ x
+    return U, None, VH, torch.full((), k, dtype=torch.int64,
+                                   device=x.device)

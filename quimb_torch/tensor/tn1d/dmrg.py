@@ -1,16 +1,18 @@
-"""DMRG2: two-site density-matrix renormalization group ground-state search.
+"""DMRG1 and DMRG2: density-matrix renormalization group ground-state
+search.
 
-Port of the open-chain two-site engine of
-``quimb_tpu/tensor/tn1d/dmrg.py``. The sweep runs on the uniform array
-representation — site tensors ``(l, p, r)``, MPO tensors
-``(wl, wr, u, d)`` (chain ends padded with size-1 bonds), environments
-``(b, w, k)`` — and at every bond it does four things:
+Port of the open-chain engine of ``quimb_tpu/tensor/tn1d/dmrg.py``. The
+sweep runs on the uniform array representation — site tensors
+``(l, p, r)``, MPO tensors ``(wl, wr, u, d)`` (chain ends padded with
+size-1 bonds), environments ``(b, w, k)`` — and at every bond (two-site,
+``bsz=2``) or site (one-site, ``bsz=1``) it does four things:
 
-- a restarted-Lanczos solve of the two-site effective Hamiltonian
-  (:func:`_local_solve_2site`), whose matvec is the sandwich kernel of
-  :mod:`quimb_torch.ops.cuda_kernels`;
+- a restarted-Lanczos solve of the effective Hamiltonian
+  (:func:`_local_solve_2site`, :func:`_local_solve_1site`), whose matvec
+  is the sandwich kernel of :mod:`quimb_torch.ops.cuda_kernels`;
 - a rank-``max_bond`` split of the updated two-site tensor
-  (:func:`_split_2site`);
+  (:func:`_split_2site`, by the method of ``bond_compress_method``), or a
+  QR / LQ move of the one-site tensor's gauge;
 - an environment absorption (:func:`_env_step_right` / ``_left``);
 - the sweep driver (:class:`DMRG`), which right-canonizes the chain
   before a fresh right sweep.
@@ -37,8 +39,8 @@ def get_default_opts():
     off the TPU."""
     return {
         "default_sweep_sequence": "R",
-        # "svd" is the only split ported so far; quimb_tpu's "svd:eig",
-        # "svd:sub" and "svd:sub0" raise NotImplementedError
+        # "svd", "svd:eig", "svd:sub" or "svd:sub0" (_split_2site); a
+        # sweep with no cutoff runs "svd:sub" as "svd:sub0"
         "bond_compress_method": "svd",
         "local_eig_ncv": 4,
         # a sweep's Lanczos basis has max(2 * local_eig_ncv,
@@ -73,18 +75,20 @@ class _EndlessSeq:
 def _env_step_right(L, Ab, W, Ak):
     """Absorb one site into a left environment:
     L (b,w,k), Ab=conj ket (b,p,b2) bra side, W (w,w2,u,d), Ak (k,d,k2)
-    -> (b2,w2,k2)."""
-    T = torch.einsum("bwk,kdx->bwdx", L, Ak)
-    T = torch.einsum("bwdx,wyud->byux", T, W)
-    return torch.einsum("byux,bua->ayx", T, Ab)
+    -> (b2,w2,k2). Leading batch dimensions, shared by all four, pass
+    through (the segment-parallel engine absorbs all segments at once)."""
+    T = torch.einsum("...bwk,...kdx->...bwdx", L, Ak)
+    T = torch.einsum("...bwdx,...wyud->...byux", T, W)
+    return torch.einsum("...byux,...bua->...ayx", T, Ab)
 
 
 def _env_step_left(R, Ab, W, Ak):
     """Absorb one site into a right environment:
-    R (b,w,k), Ab (b2,p,b), W (w2,w,u,d), Ak (k2,d,k) -> (b2,w2,k2)."""
-    T = torch.einsum("bwk,xdk->bwxd", R, Ak)
-    T = torch.einsum("bwxd,ywud->byxu", T, W)
-    return torch.einsum("byxu,aub->ayx", T, Ab)
+    R (b,w,k), Ab (b2,p,b), W (w2,w,u,d), Ak (k2,d,k) -> (b2,w2,k2);
+    leading batch dimensions as in :func:`_env_step_right`."""
+    T = torch.einsum("...bwk,...xdk->...bwxd", R, Ak)
+    T = torch.einsum("...bwxd,...ywud->...byxu", T, W)
+    return torch.einsum("...byxu,...aub->...ayx", T, Ab)
 
 
 def _fuse_lw(L, W1):
@@ -122,6 +126,22 @@ def _sandwich_operands(L, W1, W2, R):
             B.reshape(w, d * cr, d * cr).contiguous())
 
 
+def _heff_matvec_1site(LW, R, theta):
+    """theta (k,p,r) -> (a,u,b) via LW (a,x,u,p,k) and R (b,x,r)."""
+    T = torch.einsum("kpr,axupk->auxr", theta, LW)
+    return torch.einsum("auxr,bxr->aub", T, R)
+
+
+def _sandwich_operands_1site(L, W, R):
+    """The one-site operands of ``out = sum_x A[x] @ theta @ B[x]``:
+    A (w, M=(a,u), K1=(k,p)) as in :func:`_sandwich_operands` and
+    B = R as (w, K2=r, N=b), contiguous. theta (k,p,r) is (K1, K2)."""
+    cl, w, d = L.shape[0], W.shape[1], W.shape[2]
+    A = torch.einsum("awk,wxup->xaukp", L, W)
+    return (A.reshape(w, cl * d, cl * d).contiguous(),
+            R.permute(1, 2, 0).contiguous())
+
+
 def _overlap_norm_2site(L, R, v):
     """Exact ⟨ψ|ψ⟩ of the full MPS with 2-site tensor ``v`` (k,p,q,r),
     read off the environments' MPO identity channels: for a Schur-form
@@ -132,6 +152,43 @@ def _overlap_norm_2site(L, R, v):
     t = torch.einsum("ak,kpqr->apqr", nL, v)
     t = torch.einsum("apqr,br->apqb", t, nR)
     return torch.einsum("apqb,apqb->", torch.conj(v), t).real
+
+
+def _overlap_norm_1site(L, R, v):
+    """1-site variant of :func:`_overlap_norm_2site`; v is (k,p,r)."""
+    nL = L[:, 0, :]
+    nR = R[:, -1, :]
+    t = torch.einsum("ak,kpr->apr", nL, v)
+    t = torch.einsum("apr,br->apb", t, nR)
+    return torch.einsum("apb,apb->", torch.conj(v), t).real
+
+
+def _lanczos_ground(heff, theta0, K1, K2, ncv, restarts):
+    """Restarted-Lanczos lowest Ritz pair of the prepared sandwich
+    ``heff`` applied to ``theta0`` reshaped to (K1, K2). Returns (Ritz
+    value, normalized Ritz vector shaped like ``theta0``).
+
+    The basis has at most ``theta0.numel()`` vectors: past the dimension
+    of the space, a new Lanczos vector is rounding noise and its Ritz
+    values are spurious (a one-site solve at a chain end has dimension
+    1 * d * d = 4 < ncv = 8; quimb_tpu runs it with ncv vectors)."""
+    ncv = min(ncv, theta0.numel())
+
+    def matvec(th):
+        out = heff(torch.reshape(th, (K1, K2)))
+        return torch.reshape(out, theta0.shape)
+
+    v = theta0 / torch.linalg.norm(torch.reshape(theta0, (-1,)))
+    lam = None
+    for _ in range(restarts):
+        V, alpha, beta = _lanczos_basis(matvec, v, ncv)
+        w, S = _tridiag_eigh(alpha, beta)
+        lam = w[0]
+        coeff = S[:, 0].to(V.dtype)
+        vflat = coeff @ V
+        vflat = vflat / torch.linalg.norm(vflat)
+        v = torch.reshape(vflat, theta0.shape)
+    return lam, v
 
 
 def _local_solve_2site(L, W1, W2, R, theta0, ncv, restarts,
@@ -150,42 +207,60 @@ def _local_solve_2site(L, W1, W2, R, theta0, ncv, restarts,
     if sandwich is None:
         sandwich = resolve_sandwich(theta0.device, theta0.dtype)
     A, B = _sandwich_operands(L, W1, W2, R)
-    K1, K2 = A.shape[2], B.shape[1]
-    heff = sandwich(A, B)
-
-    def matvec(th):
-        out = heff(torch.reshape(th, (K1, K2)))
-        return torch.reshape(out, theta0.shape)
-
-    v = theta0 / torch.linalg.norm(torch.reshape(theta0, (-1,)))
-    lam = None
-    for _ in range(restarts):
-        V, alpha, beta = _lanczos_basis(matvec, v, ncv)
-        w, S = _tridiag_eigh(alpha, beta)
-        lam = w[0]
-        coeff = S[:, 0].to(V.dtype)
-        vflat = coeff @ V
-        vflat = vflat / torch.linalg.norm(vflat)
-        v = torch.reshape(vflat, theta0.shape)
+    lam, v = _lanczos_ground(sandwich(A, B), theta0, A.shape[2],
+                             B.shape[1], ncv, restarts)
     if norm_energy:
         lam = lam / _overlap_norm_2site(L, R, v)
     return lam, v
 
 
-def _split_2site(theta, max_bond, cutoff, absorb, method="svd"):
+def _local_solve_1site(L, W, R, theta0, ncv, restarts, norm_energy=True,
+                       sandwich=None):
+    """Restarted-Lanczos ground state of the 1-site effective
+    Hamiltonian, theta0 (k,p,r); as :func:`_local_solve_2site`, with the
+    sandwich operands of :func:`_sandwich_operands_1site` (K2 = N = r)
+    and ⟨ψ|ψ⟩ from :func:`_overlap_norm_1site`."""
+    if sandwich is None:
+        sandwich = resolve_sandwich(theta0.device, theta0.dtype)
+    A, B = _sandwich_operands_1site(L, W, R)
+    lam, v = _lanczos_ground(sandwich(A, B), theta0, A.shape[2],
+                             B.shape[1], ncv, restarts)
+    if norm_energy:
+        lam = lam / _overlap_norm_1site(L, R, v)
+    return lam, v
+
+
+#: the masked split of each bond_compress_method but "svd:sub0"
+_MASKED_SPLITS = {
+    "svd": decomp.svd_truncated_masked,
+    "svd:eig": decomp.svd_truncated_masked_eig,
+    "svd:sub": decomp.svd_truncated_masked_subspace,
+}
+
+
+def _split_2site(theta, max_bond, cutoff, absorb, method="svd",
+                 oversample=0):
     """Split the updated theta (k,d1,d2,r) into A1 (k,d1,c) and
-    A2 (c,d2,r), with ``c = min(max_bond, k d1, d2 r)`` and the values
-    below ``cutoff`` zero-masked."""
-    if method != "svd":
-        raise NotImplementedError(
-            f"bond_compress_method {method!r}: only 'svd' is ported"
-        )
+    A2 (c,d2,r), with ``c = min(max_bond, k d1, d2 r)``.
+
+    ``method`` "svd", "svd:eig" and "svd:sub" zero-mask the values below
+    ``cutoff`` (:func:`decomp.svd_truncated_masked` and its ``eig`` and
+    ``subspace`` variants). "svd:sub0" is the pure subspace split
+    :func:`decomp.split_truncated_subspace`: it ignores ``cutoff``, and
+    ``oversample`` (0: no Rayleigh-Ritz rotation) is its padding."""
     k, d1, d2, r = theta.shape
     mat = torch.reshape(theta, (k * d1, d2 * r))
-    U, s, VH, rank = decomp.svd_truncated_masked(
-        mat, max_bond=max_bond, cutoff=cutoff, cutoff_mode=4,
-        absorb=absorb,
-    )
+    if method == "svd:sub0":
+        U, _, VH, rank = decomp.split_truncated_subspace(
+            mat, max_bond=max_bond, absorb=absorb, oversample=oversample,
+        )
+    elif method in _MASKED_SPLITS:
+        U, _, VH, rank = _MASKED_SPLITS[method](
+            mat, max_bond=max_bond, cutoff=cutoff, cutoff_mode=4,
+            absorb=absorb,
+        )
+    else:
+        raise ValueError(f"unknown bond_compress_method {method!r}")
     chi = U.shape[-1]
     return (torch.reshape(U, (k, d1, chi)),
             torch.reshape(VH, (chi, d2, r)), rank)
@@ -241,7 +316,7 @@ def _mpo_has_identity_channels(Ws, tol=1e-10):
 
 
 class DMRG:
-    """Two-site DMRG on an open chain.
+    """One- or two-site DMRG on an open chain.
 
     Parameters
     ----------
@@ -251,6 +326,10 @@ class DMRG:
         The bond dimension, or a schedule of them for successive sweeps.
     cutoffs : float or sequence of float
         The truncation cutoff (relative sum of squares), or a schedule.
+    bsz : {2, 1}
+        Sites per local update: two-site updates split the updated pair
+        and can change the bond dimension; one-site updates move the
+        gauge by QR / LQ and keep every bond as it is.
     p0 : list of tensors (l, p, r), optional
         The start state, e.g. from :func:`MPS_rand_state`; random by
         default.
@@ -260,8 +339,11 @@ class DMRG:
     prepare step is resolved here, once, from that device and dtype.
     """
 
-    def __init__(self, ham_arrays, bond_dims, cutoffs=1e-9, p0=None):
+    def __init__(self, ham_arrays, bond_dims, cutoffs=1e-9, bsz=2, p0=None):
+        if bsz not in (1, 2):
+            raise ValueError(f"bsz must be 1 or 2, got {bsz}")
         self.L = len(ham_arrays)
+        self.bsz = bsz
         self.phys_dim = ham_arrays[0].shape[2]
         self._set_bond_dim_seq(bond_dims)
         self._set_cutoff_seq(cutoffs)
@@ -321,11 +403,11 @@ class DMRG:
 
     def _build_right_envs(self):
         """Right environments renv[j] = contraction of sites >= j, for
-        the j >= 2 a right sweep reads."""
+        the j >= bsz a right sweep reads."""
         L = self.L
         renv = [None] * (L + 1)
         renv[L] = self._ones_env()
-        for j in range(L - 1, 1, -1):
+        for j in range(L - 1, self.bsz - 1, -1):
             A = self._A[j]
             renv[j] = _env_step_left(renv[j + 1], torch.conj(A),
                                      self._W[j], A)
@@ -333,10 +415,10 @@ class DMRG:
 
     def _build_left_envs(self):
         """Left environments lenv[j] = contraction of sites < j, for the
-        j <= L - 2 a left sweep reads."""
+        j <= L - bsz a left sweep reads."""
         lenv = [None] * (self.L + 1)
         lenv[0] = self._ones_env()
-        for j in range(self.L - 2):
+        for j in range(self.L - self.bsz):
             A = self._A[j]
             lenv[j + 1] = _env_step_right(lenv[j], torch.conj(A),
                                           self._W[j], A)
@@ -348,47 +430,97 @@ class DMRG:
         return dict(ncv=ncv, restarts=self.opts["local_eig_restarts"],
                     norm_energy=self._norm_energy, sandwich=self._sandwich)
 
-    def _sweep_right(self, max_bond, cutoff):
+    def _split_method(self, cutoff):
+        """The sweep's split method: with no cutoff to mask, "svd:sub"
+        runs as the cheaper pure subspace split "svd:sub0"."""
         method = self.opts["bond_compress_method"]
-        solve_opts = self._solve_opts()
-        renv = self._build_right_envs()
-        lenv = self._ones_env()
-        energies = []
-        for i in range(self.L - 1):
+        if method == "svd:sub" and not (cutoff and float(cutoff) > 0.0):
+            return "svd:sub0"
+        return method
+
+    def _update_right(self, i, lenv, renv, max_bond, cutoff, method,
+                      solve_opts):
+        """The local update at site i of a right sweep; returns its
+        energy and the left environment of site i + 1."""
+        if self.bsz == 2:
             theta0 = torch.einsum("kpc,cqr->kpqr", self._A[i],
                                   self._A[i + 1])
             en, theta = _local_solve_2site(
                 lenv, self._W[i], self._W[i + 1], renv[i + 2], theta0,
                 **solve_opts,
             )
-            N1, N2, _ = _split_2site(theta, max_bond=max_bond,
-                                     cutoff=cutoff, absorb="right",
-                                     method=method)
-            self._A[i], self._A[i + 1] = N1, N2
-            lenv = _env_step_right(lenv, torch.conj(N1), self._W[i], N1)
-            energies.append(en)
-        self.local_energies.append(energies)
-        return float(energies[-1].real)
+            self._A[i], self._A[i + 1], _ = _split_2site(
+                theta, max_bond=max_bond, cutoff=cutoff, absorb="right",
+                method=method)
+        else:
+            en, theta = _local_solve_1site(
+                lenv, self._W[i], renv[i + 1], self._A[i], **solve_opts)
+            if i < self.L - 1:
+                # move the gauge right: theta = Q R, R into site i + 1
+                l, p, r = theta.shape
+                Q, _, Rf = decomp.qr_stabilized(
+                    torch.reshape(theta, (l * p, r)))
+                self._A[i] = torch.reshape(Q, (l, p, Q.shape[-1]))
+                self._A[i + 1] = torch.einsum("ck,kpr->cpr", Rf,
+                                              self._A[i + 1])
+            else:
+                self._A[i] = theta
+        A = self._A[i]
+        return en, _env_step_right(lenv, torch.conj(A), self._W[i], A)
 
-    def _sweep_left(self, max_bond, cutoff):
-        method = self.opts["bond_compress_method"]
-        solve_opts = self._solve_opts()
-        lenvs = self._build_left_envs()
-        renv = self._ones_env()
-        energies = []
-        for i in range(self.L - 2, -1, -1):
+    def _update_left(self, i, lenvs, renv, max_bond, cutoff, method,
+                     solve_opts):
+        """The local update at site i of a left sweep; returns its energy
+        and the right environment of site i + bsz - 1."""
+        if self.bsz == 2:
             theta0 = torch.einsum("kpc,cqr->kpqr", self._A[i],
                                   self._A[i + 1])
             en, theta = _local_solve_2site(
                 lenvs[i], self._W[i], self._W[i + 1], renv, theta0,
                 **solve_opts,
             )
-            N1, N2, _ = _split_2site(theta, max_bond=max_bond,
-                                     cutoff=cutoff, absorb="left",
-                                     method=method)
-            self._A[i], self._A[i + 1] = N1, N2
-            renv = _env_step_left(renv, torch.conj(N2), self._W[i + 1],
-                                  N2)
+            self._A[i], self._A[i + 1], _ = _split_2site(
+                theta, max_bond=max_bond, cutoff=cutoff, absorb="left",
+                method=method)
+        else:
+            en, theta = _local_solve_1site(
+                lenvs[i], self._W[i], renv, self._A[i], **solve_opts)
+            if i > 0:
+                # move the gauge left: theta = L Q, L into site i - 1
+                l, p, r = theta.shape
+                Lf, _, Q = decomp.lq_stabilized(
+                    torch.reshape(theta, (l, p * r)))
+                self._A[i] = torch.reshape(Q, (Q.shape[0], p, r))
+                self._A[i - 1] = torch.einsum("kpr,rc->kpc",
+                                              self._A[i - 1], Lf)
+            else:
+                self._A[i] = theta
+        j = i + self.bsz - 1
+        A = self._A[j]
+        return en, _env_step_left(renv, torch.conj(A), self._W[j], A)
+
+    def _sweep_right(self, max_bond, cutoff):
+        method = self._split_method(cutoff)
+        solve_opts = self._solve_opts()
+        renv = self._build_right_envs()
+        lenv = self._ones_env()
+        energies = []
+        for i in range(self.L - self.bsz + 1):
+            en, lenv = self._update_right(i, lenv, renv, max_bond, cutoff,
+                                          method, solve_opts)
+            energies.append(en)
+        self.local_energies.append(energies)
+        return float(energies[-1].real)
+
+    def _sweep_left(self, max_bond, cutoff):
+        method = self._split_method(cutoff)
+        solve_opts = self._solve_opts()
+        lenvs = self._build_left_envs()
+        renv = self._ones_env()
+        energies = []
+        for i in range(self.L - self.bsz, -1, -1):
+            en, renv = self._update_left(i, lenvs, renv, max_bond, cutoff,
+                                         method, solve_opts)
             energies.append(en)
         self.local_energies.append(energies)
         return float(energies[-1].real)
@@ -437,11 +569,21 @@ class DMRG:
         return False
 
 
+class DMRG1(DMRG):
+    """One-site DMRG, with quimb_tpu's defaults."""
+
+    def __init__(self, ham_arrays, bond_dims=None, cutoffs=1e-8, p0=None):
+        super().__init__(
+            ham_arrays, bond_dims=bond_dims if bond_dims is not None else 8,
+            cutoffs=cutoffs, bsz=1, p0=p0,
+        )
+
+
 class DMRG2(DMRG):
     """Two-site DMRG, with quimb_tpu's defaults."""
 
     def __init__(self, ham_arrays, bond_dims=None, cutoffs=1e-8, p0=None):
         super().__init__(
             ham_arrays, bond_dims=bond_dims if bond_dims is not None else 8,
-            cutoffs=cutoffs, p0=p0,
+            cutoffs=cutoffs, bsz=2, p0=p0,
         )

@@ -1,6 +1,6 @@
 """quimb_torch on a CUDA GPU: the hand-written sandwich kernels (3xTF32
 for float32, FP64 tensor cores for float64) against their plain version,
-and small DMRG2 runs against the CPU port.
+and small DMRG2, DMRG1 and ParallelDMRG runs against the CPU port.
 
 Every test here needs a GPU and skips without one. The file imports no
 JAX; on a GPU machine run it without the JAX setup of the test
@@ -172,3 +172,108 @@ def test_dmrg_float64_through_dmma_kernel(cuda):
     # float64 on both; the sums run in other orders
     np.testing.assert_allclose(energies["cuda"], energies["cpu"],
                                rtol=1e-10)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+def test_1site_and_segment_sandwich_match_plain(cuda, dtype, tol):
+    """The one-site operands (DMRG1) and the per-segment operand sets
+    (ParallelDMRG), prepared and applied through the kernel, give the
+    plain einsums of the effective Hamiltonians."""
+    from quimb_torch.tensor.tn1d import dmrg as td
+    from quimb_torch.tensor.tn1d import dmrg_jacobi as tj
+    from quimb_torch.tensor.tn1d import dmrg_parallel as tp
+
+    rng = np.random.default_rng(4)
+    cl, cr, d, w, S = 24, 20, 2, 5, 3
+
+    def on_card(*xs):
+        return [torch.as_tensor(x, dtype=dtype, device=cuda) for x in xs]
+
+    L, W, R, theta = on_card(rng.standard_normal((cl, w, cl)),
+                             rng.standard_normal((w, w, d, d)),
+                             rng.standard_normal((cr, w, cr)),
+                             rng.standard_normal((cl, d, cr)))
+    want = td._heff_matvec_1site(td._fuse_lw(L.double(), W.double()),
+                                 R.double(), theta.double())
+    A, B = td._sandwich_operands_1site(L, W, R)
+    before = ck.LAUNCHES[_KERNEL[dtype]]
+    got = ck.prepare_sandwich(A, B)(theta.reshape(cl * d, cr))
+    assert ck.LAUNCHES[_KERNEL[dtype]] == before + 1
+    rel = torch.linalg.norm(got.double().reshape(want.shape) - want) \
+        / torch.linalg.norm(want)
+    assert rel.item() <= tol
+
+    LW1, W2R, th = on_card(rng.standard_normal((S, cl, w, d, d, cl)),
+                           rng.standard_normal((S, w, d, d, cl, cl)),
+                           rng.standard_normal((S, cl, d, d, cl)))
+    want = tj._batched_matvec(LW1.double(), W2R.double(), th.double())
+    A, B = tp._sandwich_stacks(LW1, W2R)
+    heffs = [ck.prepare_sandwich(A[i], B[i]) for i in range(S)]
+    before = ck.LAUNCHES[_KERNEL[dtype]]
+    got = tp._matvec_via_sandwich(heffs, th.reshape(S, cl * d, d * cl))
+    assert ck.LAUNCHES[_KERNEL[dtype]] == before + S
+    rel = torch.linalg.norm(got.double().reshape(want.shape) - want) \
+        / torch.linalg.norm(want)
+    assert rel.item() <= tol
+
+
+def test_dmrg1_float64_through_dmma_kernel(cuda):
+    """A float64 DMRG1 run on the card launches the FP64 kernel at every
+    one-site solve and gives the CPU port's energies."""
+    energies = {}
+    for device in ("cpu", cuda):
+        H = quimb_torch.MPO_ham_heis(16, dtype=torch.float64, device=device)
+        p0 = quimb_torch.MPS_rand_state(16, 8, seed=3, dtype=torch.float64,
+                                        device=device)
+        dmrg = quimb_torch.DMRG1(H, bond_dims=8, cutoffs=0.0, p0=p0)
+        before = dict(ck.LAUNCHES)
+        energies[str(device)] = [
+            dmrg.sweep(d, max_bond=8, cutoff=0.0, canonize=d == "R")
+            for d in "RLRL"
+        ]
+        if device == cuda:
+            n = ck.LAUNCHES["sandwich_f64"] - before["sandwich_f64"]
+            # 8 matvecs at the 14 inner sites, 4 at each end, per sweep
+            assert n == 4 * (14 * 8 + 2 * 4)
+            assert ck.LAUNCHES["sandwich_tf32"] == before["sandwich_tf32"]
+    # float64 on both; the sums run in other orders
+    np.testing.assert_allclose(energies["cuda"], energies["cpu"],
+                               rtol=1e-10)
+
+
+def test_parallel_dmrg_matches_cpu(cuda, monkeypatch):
+    """ParallelDMRG at L=16, chi=24, S=2 on the card, from one float64
+    DMRG2 state and one random start of the split, against its CPU run."""
+    from quimb_torch.ops import decomp
+    from quimb_torch.tensor.tn1d.dmrg_parallel import ParallelDMRG
+
+    draw = decomp._random_start
+    # the start drawn on the CPU, so that both devices iterate from it
+    monkeypatch.setattr(
+        decomp, "_random_start",
+        lambda shape, dtype, device, seed: draw(shape, dtype, "cpu",
+                                                seed).to(device))
+    H = quimb_torch.MPO_ham_heis(16, dtype=torch.float64)
+    dmrg = quimb_torch.DMRG2(H, bond_dims=8, cutoffs=1e-10,
+                             p0=quimb_torch.MPS_rand_state(
+                                 16, 8, seed=36, dtype=torch.float64))
+    dmrg.sweep("R", max_bond=8, cutoff=1e-10)
+    energies = {}
+    for device in ("cpu", cuda):
+        pd = ParallelDMRG([A.to(device) for A in dmrg.state],
+                          [W.to(device) for W in H], max_bond=24,
+                          n_segments=2)
+        before = dict(ck.LAUNCHES)
+        energies[str(device)] = [pd.sweep() for _ in range(4)]
+        if device == cuda:
+            n = ck.LAUNCHES["sandwich_f64"] - before["sandwich_f64"]
+            # 3 half-sweeps of 7 bonds, 8 matvecs a solve: 2 segments,
+            # then 1 at the offset, twice
+            assert n == 2 * 3 * 7 * 8 * (2 + 1)
+            assert ck.LAUNCHES["sandwich_tf32"] == before["sandwich_tf32"]
+    # float64 on both from one start; the bond bases' signs come from
+    # cuSOLVER on the card and LAPACK on the CPU, and the subspace split
+    # depends on them at about 1e-8 after a few sweeps (CPU parity tests)
+    np.testing.assert_allclose(energies["cuda"], energies["cpu"], rtol=0,
+                               atol=1e-6)

@@ -116,10 +116,16 @@ def test_mpo_identity_channels():
 
 
 def test_split_methods_other_than_svd_raise():
-    theta = torch.zeros((2, 2, 2, 2), dtype=torch.float64)
-    for method in ("svd:eig", "svd:sub", "svd:sub0"):
-        with pytest.raises(NotImplementedError):
+    """Split methods other than "svd" and its three variants raise
+    (quimb_tpu runs an unknown method as "svd"); the variants run."""
+    theta = torch.ones((2, 2, 2, 2), dtype=torch.float64)
+    for method in ("qr", "svd:rand", "eig"):
+        with pytest.raises(ValueError):
             td._split_2site(theta, 2, 0.0, "right", method=method)
+    for method in ("svd", "svd:eig", "svd:sub", "svd:sub0"):
+        A1, A2, _ = td._split_2site(theta, 2, 0.0, "right", method=method)
+        torch.testing.assert_close(torch.einsum("kpc,cqr->kpqr", A1, A2),
+                                   theta)
 
 
 def test_entry_local_update():
