@@ -56,11 +56,28 @@ fatal on failure:
    Lanczos vector at every site (8, and 4 at each chain end, whose
    one-site space has dimension 4) and the float32 one never; the host
    energy within a relative 1e-6 of E_REF, and no more than 1e-9
-   relative above the DMRG2 state's.
+   relative above the DMRG2 state's;
+10. the TEBD real-time quench of benchref/measure_tpu_tebd.py, once in
+   complex128 (quimb's dtype) and once in complex64 (the TPU bench's):
+   the Heisenberg chain at L=64 from the Néel state, max_bond 64, cutoff
+   1e-10, 20 fourth-order steps of dt 0.05, through entry points called
+   with no device (so on the GPU). Each step is timed with a synchronised
+   host clock after a warm-up of 2 dt on a copy. Every stack must be on
+   the GPU, finite and in the dtype asked for; the 20 half-chain
+   entropies within 2e-4 (complex128) or 2e-3 (complex64) of the
+   reference curve in benchref/REFBASE.json; ``err`` within 1e-9
+   relative of the reference's; the final state's norm, on the host in
+   float64, within 1e-8 or 1e-5 of 1; and no sandwich kernel launched.
+   Printed, not gated: the distance to quimb_tpu's own complex128 CPU
+   curve, the discarded weight, the device's busy share over one step
+   (``torch.profiler``), and the SVD drivers of cuSOLVER on one parity
+   sweep's (32, 128, 128) batch: time and orthogonality of each.
 
 The line before the last is the kernels' JSON summary, one entry per
 kernel with its launches on its paths (DMRG2 and ParallelDMRG for
-float32, DMRG2 and DMRG1 for float64); the last line is
+float32, DMRG2 and DMRG1 for float64; TEBD runs no hand-written kernel),
+its time against the plain einsum (the one library call that computes
+the same product) and its bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -104,6 +121,11 @@ KERNEL_NAME = {torch.float32: "sandwich_tf32", torch.float64: "sandwich_f64"}
 KERNEL_SOURCE = {torch.float32: "quimb_torch/csrc/sandwich_tf32.cu",
                  torch.float64: "quimb_torch/csrc/sandwich_f64.cu"}
 KERNEL_KIND = {torch.float32: "3xTF32", torch.float64: "FP64 DMMA"}
+# the card's peak rates for each kernel's work (NVIDIA's data sheet, H100
+# SXM, 700 W): 3xTF32 does three TF32 products per float32 product, so
+# 495 / 3 TFLOP/s of float32 work; float64 on the FP64 tensor cores
+PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.float64: 67e12}
+PEAK_BYTES = 3.35e12
 
 
 def check_device():
@@ -249,8 +271,7 @@ def time_kernel(host, dtype):
                                          (a, theta, b)))
         else:
             times[name].append(_event_ms(heff, (theta,)))
-    w, M, K1, K2, N = CHECK_SHAPES[0]
-    flop = 2 * w * (M * K1 * K2 + M * K2 * N)
+    flop = sandwich_bound(dtype)[2]
     kernel_ms = statistics.mean(times["kernel"])
     plain_ms = statistics.mean(times["plain"])
     print(f"sandwich at {CHECK_SHAPES[0]} {dtype}: kernel (prepared, "
@@ -270,6 +291,19 @@ def time_kernel(host, dtype):
         print(f"  all launches: {sum(steps.values()):.4f} ms device time "
               f"per matvec", flush=True)
     return kernel_ms, plain_ms
+
+
+def sandwich_bound(dtype):
+    """(ms, "bytes" or "operations", flop): the least time of one matvec
+    at the north-star shape, the larger of its operands' and result's
+    bytes over the memory rate and its products over the peak rate."""
+    w, M, K1, K2, N = CHECK_SHAPES[0]
+    flop = 2 * w * (M * K1 * K2 + M * K2 * N)
+    nbytes = (w * M * K1 + K1 * K2 + w * K2 * N + M * N) * dtype.itemsize
+    ops_ms = flop / PEAK_FLOPS[dtype] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes"), flop
 
 
 def host_f64_energy(As, Ws):
@@ -572,6 +606,186 @@ def run_dmrg1_path(dmrg2):
     return launches
 
 
+# -- phase 10: the TEBD quench ------------------------------------------------
+
+TEBD_L, TEBD_CHI, TEBD_STEPS, TEBD_DT, TEBD_CUTOFF = 64, 64, 20, 0.05, 1e-10
+TEBD_REAL = {torch.complex128: torch.float64, torch.complex64: torch.float32}
+# bounds on the largest distance of the 20 entropies from the reference
+# curve: about 2.5 times quimb_tpu's own (8.0e-5 in complex128 on a CPU,
+# 7.9e-4 in complex64 on a TPU); and on |<psi|psi> - 1| of the final state.
+# In complex64 that is the float32 rounding of 64 B-form tensors: on a CPU
+# it wanders between 1e-6 and 2e-5 from step to step, with no drift
+TEBD_ENT_TOL = {torch.complex128: 2e-4, torch.complex64: 2e-3}
+TEBD_NORM_TOL = {torch.complex128: 1e-8, torch.complex64: 1e-4}
+# quimb_tpu's own complex128 curve of this quench, from
+# ``JAX_PLATFORMS=cpu QUIMB_TPU_X64=1 python benchref/measure_tpu_tebd.py
+# 64 64 20 0.05`` on a CPU (printed against, not gated)
+QUIMB_TPU_CPU_C128 = np.array([
+    0.0075482694509380124, 0.025140156527633736, 0.04982170841521701,
+    0.07992733626961111, 0.11423208603258764, 0.15175386766845503,
+    0.1916759939046804, 0.23331062892568086, 0.27607940365553924,
+    0.31950184589079034, 0.3631872774508482, 0.4068279870093512,
+    0.4501926988774144, 0.49311952447586543, 0.5355083258439821,
+    0.5773123813641874, 0.6185295808309791, 0.6591932696663401,
+    0.6993631970176517, 0.7391166856784459,
+])
+# cuSOLVER's SVD drivers, timed on one parity sweep's batch, and the bound
+# on ||U^H U - I||_2 and ||VH VH^H - I||_2 that the quench's own SVD
+# driver (decomp._svd_driver) must hold there: the Hastings update needs
+# isometric factors
+SVD_DRIVERS = ("gesvd", "gesvdj", None)
+SVD_ORTHO_TOL = {torch.complex128: 1e-12, torch.complex64: 1e-5}
+
+
+def _tebd_reference():
+    """jcmgray/quimb's complex128 run of the quench (entropies, err)."""
+    ref = json.loads(Path("benchref/REFBASE.json").read_text())
+    ref = ref["tebd_L64_chi64"]
+    return np.asarray(ref["entropies"]), ref["err"]
+
+
+def _busy_share(fn):
+    """Device time over wall time of ``fn()``, the kernels that took most
+    of it and the count of device activities, from torch.profiler; None
+    for the share where the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name, count = {}, 0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            count += 1
+            by_name[ev.name] = (by_name.get(ev.name, 0.0)
+                                + ev.time_range.elapsed_us())
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return (busy / wall_us if busy > 0 else None), top, wall_us, count
+
+
+def _theta_batch(tebd):
+    """The even bonds' theta = ls . B1 B2 of the state, (32, 128, 128)."""
+    Bs, ls = tebd._vidal
+    idx = tebd._pair_index(0)
+    m, chi, d = idx.numel(), Bs.shape[1], Bs.shape[2]
+    th = torch.einsum("mlpc,mcqr->mlpqr", Bs[idx], Bs[idx + 1])
+    return (th * ls[idx][:, :, None, None, None]).reshape(m, chi * d, d * chi)
+
+
+def svd_driver_table(theta):
+    """Each SVD driver on the batch ``theta``: median wall ms of one call,
+    and the largest ||U^H U - I||_2 and ||VH VH^H - I||_2 over the batch."""
+    eye = torch.eye(theta.shape[-1], dtype=theta.dtype, device=theta.device)
+    print(f"SVD drivers on {tuple(theta.shape)} {theta.dtype} (one parity "
+          f"sweep's batch):", flush=True)
+    rows = {}
+    for driver in SVD_DRIVERS:
+        svd = functools.partial(torch.linalg.svd, theta, full_matrices=False,
+                                driver=driver)
+        U, _, VH = svd()
+        ms = _host_ms(svd)
+        ortho_u = torch.linalg.matrix_norm(decomp.dag(U) @ U - eye, 2)
+        ortho_v = torch.linalg.matrix_norm(VH @ decomp.dag(VH) - eye, 2)
+        rows[driver] = (ms, ortho_u.max().item(), ortho_v.max().item())
+        print(f"  {driver or 'default'}: {ms:.3f} ms, ||U^H U - I||_2 "
+              f"{rows[driver][1]:.3e}, ||VH VH^H - I||_2 "
+              f"{rows[driver][2]:.3e}", flush=True)
+    return rows
+
+
+def _host_norm(As):
+    """<psi|psi> of a list state, in complex128 numpy."""
+    env = np.ones((1, 1))
+    for A in As:
+        A = to_host(A).astype(np.complex128)
+        env = np.einsum("ab,apx,bpy->xy", env, A, A.conj())
+    return env.reshape(()).real
+
+
+def run_tebd_path(dtype):
+    """The quench in ``dtype`` through the entry points, with no device."""
+    ref_ent, ref_err = _tebd_reference()
+    psi0 = quimb_torch.MPS_neel_state(TEBD_L, dtype=TEBD_REAL[dtype])
+    H = quimb_torch.ham_1d_heis(TEBD_L)
+    opts = {"max_bond": TEBD_CHI, "cutoff": TEBD_CUTOFF}
+    if not all(A.is_cuda for A in psi0):
+        raise AssertionError("MPS_neel_state with no device is not on the GPU")
+
+    warm = quimb_torch.TEBD(psi0, H, split_opts=opts)
+    t0 = time.perf_counter()
+    warm.update_to(2 * TEBD_DT, dt=TEBD_DT)
+    torch.cuda.synchronize()
+    print(f"TEBD {dtype} warm-up (2 steps on a copy): "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    _reset_launches()
+    tebd = quimb_torch.TEBD(psi0, H, split_opts=opts)
+    entropies, seconds = [], []
+    for k in range(1, TEBD_STEPS + 1):
+        t0 = time.perf_counter()
+        tebd.update_to(k * TEBD_DT, dt=TEBD_DT)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        entropies.append(tebd.entropy(TEBD_L // 2))
+        print(f"TEBD {dtype} step {k}: {seconds[-1]:.4f} s, S(L/2) "
+              f"{entropies[-1]:.10f}", flush=True)
+    launches = sum(ck.LAUNCHES.values())
+    print(f"TEBD {dtype}: {statistics.mean(seconds):.4f} s per step (mean of "
+          f"{TEBD_STEPS}; median {statistics.median(seconds):.4f}), "
+          f"sandwich launches {dict(ck.LAUNCHES)}", flush=True)
+
+    Bs, ls = tebd._vidal
+    for name, t, want in (("Bs", Bs, dtype), ("ls", ls, TEBD_REAL[dtype])):
+        finite = bool(torch.isfinite(t).all())
+        if not (t.is_cuda and t.dtype == want and finite):
+            raise AssertionError(f"TEBD stack {name}: {t.device} {t.dtype}, "
+                                 f"or not finite")
+    dist = np.abs(np.asarray(entropies) - ref_ent)
+    print(f"TEBD {dtype} entropies against the reference curve: max "
+          f"{dist.max():.3e} (bound {TEBD_ENT_TOL[dtype]:.0e}) at step "
+          f"{int(dist.argmax()) + 1}", flush=True)
+    own = np.abs(np.asarray(entropies) - QUIMB_TPU_CPU_C128).max()
+    print(f"  against quimb_tpu's complex128 CPU curve: max {own:.3e}",
+          flush=True)
+    rel_err = abs(tebd.err - ref_err) / ref_err
+    print(f"TEBD {dtype} err {tebd.err!r} against {ref_err!r}: relative "
+          f"{rel_err:.3e}; discarded weight (trunc_err) {tebd.trunc_err!r}",
+          flush=True)
+    if not dist.max() <= TEBD_ENT_TOL[dtype]:
+        raise AssertionError("TEBD entropies miss the reference curve")
+    if not rel_err <= 1e-9:
+        raise AssertionError("TEBD err misses the reference's")
+    if launches:
+        raise AssertionError("TEBD launched a sandwich kernel")
+
+    theta = _theta_batch(tebd)
+    rows = svd_driver_table(theta)
+    driver = decomp._svd_driver(theta)
+    if not max(rows[driver][1:]) <= SVD_ORTHO_TOL[dtype]:
+        raise AssertionError(f"the SVD driver of the quench, {driver}, "
+                             f"lost orthogonality")
+    share, top, wall_us, count = _busy_share(
+        lambda: warm.update_to(3 * TEBD_DT, dt=TEBD_DT))
+    print(f"TEBD {dtype} step 3 of the copy under torch.profiler: "
+          f"{wall_us / 1e3:.3f} ms wall, {count} device activities, busy "
+          f"share " + ("not measured" if share is None else f"{share:.4f}"),
+          flush=True)
+    for name, us in top:
+        print(f"  {us / 1e3:.3f} ms  {name[:100]}", flush=True)
+
+    nrm = _host_norm(tebd.pt)
+    print(f"TEBD {dtype} final state: bonds "
+          f"{max(A.shape[2] for A in tebd.pt)}, |<psi|psi> - 1| "
+          f"{abs(nrm - 1):.3e} (bound {TEBD_NORM_TOL[dtype]:.0e})", flush=True)
+    if not abs(nrm - 1) <= TEBD_NORM_TOL[dtype]:
+        raise AssertionError("the TEBD state lost its norm")
+
+
 def main():
     check_device()
     build_kernels()
@@ -585,6 +799,9 @@ def main():
     dmrg, launches[torch.float64] = run_main_path(torch.float64)
     check_splits(bond_breakdown(dmrg))
     launches[torch.float64] += run_dmrg1_path(dmrg)
+    del dmrg
+    for dtype in TEBD_REAL:
+        run_tebd_path(dtype)
     print(json.dumps({"kernels": [{
         "name": "sandwich_matvec",
         "route": "cuda",
@@ -594,6 +811,11 @@ def main():
         "max_abs_err": max_abs_err[dtype],
         "ms": times[dtype][0],
         "plain_ms": times[dtype][1],
+        "bound_ms": sandwich_bound(dtype)[0],
+        "bound_by": sandwich_bound(dtype)[1],
+        # the plain version is the one library call that computes the
+        # product, torch.einsum("xmk,kl,xln->mn")
+        "library_ms": times[dtype][1],
     } for dtype in KERNEL_TOLS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,12 +1,15 @@
 """quimb_torch: the PyTorch and CUDA port of quimb_tpu.
 
-The first slice is the DMRG2 main path: ``MPO_ham_heis`` builds the
-Hamiltonian, ``MPS_rand_state`` the start state and ``DMRG2`` sweeps,
-with the effective-Hamiltonian matvec in a hand-written CUDA kernel on
-the GPU. The package imports torch, never JAX.
+It holds quimb_tpu's 1D engines on lists of site tensors: the builders
+(``MPO_ham_heis``, ``MPS_rand_state``, the product states and the
+``ham_1d_*`` local Hamiltonians), the ground-state searches ``DMRG2``,
+``DMRG1`` and ``ParallelDMRG``, with every effective-Hamiltonian matvec
+of a GPU run in a hand-written CUDA kernel, and ``TEBD`` time evolution.
+Every builder and entry point puts its tensors on the GPU unless it is
+given another ``device``, such as ``"cpu"``. The package imports torch,
+never JAX.
 """
 
 from . import config  # noqa: F401  (precision setup, before any product)
-from .tensor import DMRG1, DMRG2, MPO_ham_heis, MPS_rand_state
-
-__all__ = ["DMRG1", "DMRG2", "MPO_ham_heis", "MPS_rand_state"]
+from .tensor import *  # noqa: F401,F403
+from .tensor import __all__  # noqa: F401

@@ -13,6 +13,10 @@ import torch
 DEFAULT_DTYPE = torch.complex128
 #: dtype of random states built without an explicit one
 DEFAULT_REAL_DTYPE = torch.float64
+#: device of every tensor a builder or entry point makes without an explicit
+#: one: the GPU. Without CUDA such a call raises; ``device="cpu"`` asks for
+#: the CPU.
+DEFAULT_DEVICE = torch.device("cuda")
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

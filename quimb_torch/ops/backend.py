@@ -4,6 +4,19 @@ and torch."""
 import numpy as np
 import torch
 
+from ..config import DEFAULT_DEVICE
+
+
+def resolve_device(device):
+    """``device``, or the package's default device (the GPU) when it is
+    ``None``. Raises when that is a CUDA device and there is none: an
+    entry point never falls back to the CPU on its own."""
+    device = DEFAULT_DEVICE if device is None else torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on "
+                           "the CPU")
+    return device
+
 
 def to_device(x, device=None, dtype=None):
     """Array-like or tensor -> tensor on ``device`` with ``dtype`` (either

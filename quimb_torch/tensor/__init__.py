@@ -1,5 +1,4 @@
 """Tensor-network algorithms of quimb_torch."""
 
-from .tn1d import DMRG1, DMRG2, MPO_ham_heis, MPS_rand_state
-
-__all__ = ["DMRG1", "DMRG2", "MPO_ham_heis", "MPS_rand_state"]
+from .tn1d import *  # noqa: F401,F403
+from .tn1d import __all__  # noqa: F401

@@ -1,12 +1,17 @@
 """Builders of 1D states and Hamiltonians, at array level.
 
 Port of the open-chain parts of ``quimb_tpu/tensor/tn1d/builders.py``
-(``MPS_rand_state``, ``SpinHam1D`` and ``MPO_ham_heis``). They return
-the uniform site-tensor lists the DMRG engine sweeps over:
+(``MPS_rand_state``, the product states, ``SpinHam1D``, ``MPO_ham_heis``
+and the ``ham_1d_*`` builders). The states and operators come out as the
+uniform site-tensor lists the DMRG and TEBD engines sweep over:
 
 - an MPO as tensors ``(wl, wr, u, d)``, the chain's ends padded with
   size-1 bonds (what ``quimb_tpu``'s ``dmrg._mpo_uniform_arrays`` gives);
 - an MPS as tensors ``(l, p, r)``, padded the same way.
+
+The ``ham_1d_*`` builders return a :class:`~.tebd.LocalHam1D` of host
+numpy terms. Every tensor lands on ``device``, the GPU unless the caller
+names another (``config.DEFAULT_DEVICE``).
 """
 
 import math
@@ -16,7 +21,7 @@ import torch
 
 from ...config import DEFAULT_DTYPE, DEFAULT_REAL_DTYPE
 from ...gen.operators import _spin_op_np
-from ...ops.backend import to_device
+from ...ops.backend import resolve_device, to_device
 
 
 def MPS_rand_state(L, bond_dim, phys_dim=2, normalize=True, dtype=None,
@@ -31,6 +36,7 @@ def MPS_rand_state(L, bond_dim, phys_dim=2, normalize=True, dtype=None,
     nor underflow, whatever ``dtype``.
     """
     dtype = dtype or DEFAULT_REAL_DTYPE
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     arrays = []
     for i in range(L):
@@ -51,14 +57,35 @@ def MPS_rand_state(L, bond_dim, phys_dim=2, normalize=True, dtype=None,
     return [to_device(A, device=device, dtype=dtype) for A in arrays]
 
 
-class SpinHam1D:
-    """Nearest-neighbour spin-chain Hamiltonian on an open chain, built
-    into an MPO by the standard finite-state-machine construction.
-    Operators are the labels of :func:`quimb_torch.gen.operators._spin_op_np`
-    or matrices."""
+def MPS_product_state(arrays, dtype=None, device=None):
+    """Product-state MPS from single-site vectors, as tensors ``(1, p, 1)``
+    in ``dtype`` (the vectors' own when ``None``)."""
+    device = resolve_device(device)
+    return [to_device(np.reshape(np.asarray(a), (1, -1, 1)), device=device,
+                      dtype=dtype) for a in arrays]
 
-    def __init__(self, S=1 / 2):
+
+def MPS_computational_state(binary, dtype=None, device=None):
+    """MPS of a computational basis state such as ``"01101"``."""
+    return MPS_product_state([np.eye(2)[int(b)] for b in binary],
+                             dtype=dtype or DEFAULT_REAL_DTYPE, device=device)
+
+
+def MPS_neel_state(L, down_first=False, dtype=None, device=None):
+    """The Néel state ``0101...`` (``1010...`` with ``down_first``)."""
+    binary = ("10" if down_first else "01") * L
+    return MPS_computational_state(binary[:L], dtype=dtype, device=device)
+
+
+class SpinHam1D:
+    """Nearest-neighbour spin-chain Hamiltonian, built into an MPO by the
+    standard finite-state-machine construction (open chains only) or into
+    a :class:`~.tebd.LocalHam1D` for TEBD. Operators are the labels of
+    :func:`quimb_torch.gen.operators._spin_op_np` or matrices."""
+
+    def __init__(self, S=1 / 2, cyclic=False):
         self.S = S
+        self.cyclic = cyclic
         self.one_site_terms = []
         self.two_site_terms = []
 
@@ -95,6 +122,23 @@ class SpinHam1D:
             H = H + factor * self._op(s)
         return H
 
+    def _sum_two_site(self, terms):
+        d = int(2 * self.S + 1)
+        H = np.zeros((d * d, d * d), dtype=complex)
+        for factor, s1, s2 in terms:
+            H = H + factor * np.kron(self._op(s1), self._op(s2))
+        return H
+
+    def build_local_ham(self, L):
+        """The :class:`~.tebd.LocalHam1D` (TEBD) form on ``L`` sites."""
+        from .tebd import LocalHam1D
+
+        H2 = self._sum_two_site(self.two_site_terms) \
+            if self.two_site_terms else None
+        H1 = self._sum_one_site(self.one_site_terms) \
+            if self.one_site_terms else None
+        return LocalHam1D(L=L, H2=H2, H1=H1, cyclic=self.cyclic)
+
     def _mpo_tensor(self, one_terms, two_terms):
         """The bulk MPO tensor W[D, D, d, d] of the finite-state machine:
         channel 0 carries the identity string, channel D - 1 the finished
@@ -119,7 +163,12 @@ class SpinHam1D:
         with its first row kept on site 0 and its last column on site
         ``L - 1``. A real operator comes out in the real counterpart of
         ``dtype``."""
+        if self.cyclic:
+            raise NotImplementedError(
+                "a cyclic MPO needs the tensor-network object layer "
+                "(ROADMAP queue 1, item 14)")
         dtype = dtype or DEFAULT_DTYPE
+        device = resolve_device(device)
         W = self._mpo_tensor(self.one_site_terms, self.two_site_terms)
         D = W.shape[0]
         if np.allclose(W.imag, 0):
@@ -137,8 +186,8 @@ class SpinHam1D:
         return arrays
 
 
-def _ham_heis_builder(j=1.0, bz=0.0, S=1 / 2):
-    H = SpinHam1D(S=S)
+def _ham_heis_builder(j=1.0, bz=0.0, S=1 / 2, cyclic=False):
+    H = SpinHam1D(S=S, cyclic=cyclic)
     try:
         jx, jy, jz = j
     except (TypeError, ValueError):
@@ -163,3 +212,61 @@ def MPO_ham_heis(L, j=1.0, bz=0.0, S=1 / 2, dtype=None, device=None):
     MPO tensors ``(wl, wr, u, d)``."""
     return _ham_heis_builder(j, bz, S).build_mpo(L, dtype=dtype,
                                                  device=device)
+
+
+def ham_1d_heis(L, j=1.0, bz=0.0, S=1 / 2, cyclic=False):
+    """Heisenberg Hamiltonian as a :class:`~.tebd.LocalHam1D`."""
+    return _ham_heis_builder(j, bz, S, cyclic).build_local_ham(L)
+
+
+def ham_1d_XY(L, j=1.0, bz=0.0, S=1 / 2, cyclic=False):
+    """XY model: the Heisenberg builder with ``jz = 0``."""
+    try:
+        jx, jy = j
+    except (TypeError, ValueError):
+        jx = jy = j
+    return ham_1d_heis(L, j=(jx, jy, 0.0), bz=bz, S=S, cyclic=cyclic)
+
+
+def _ham_ising_builder(j=1.0, bx=0.0, S=1 / 2, cyclic=False):
+    H = SpinHam1D(S=S, cyclic=cyclic)
+    H += 4 * j, "Z", "Z"
+    H -= 2 * bx, "X"
+    return H
+
+
+def ham_1d_ising(L, j=4.0, bx=2.0, S=1 / 2, cyclic=False):
+    """Transverse-field Ising model, ``j/4 ΣZZ − bx/2 ΣX`` in spin
+    operators (quimb's Pauli-style ``j`` and ``bx``)."""
+    return _ham_ising_builder(j / 4, bx / 2, S, cyclic).build_local_ham(L)
+
+
+def ham_1d_XXZ(L, delta=None, jxy=1.0, S=1 / 2, cyclic=False):
+    """XXZ model: ``jxy (XX + YY) + delta ZZ``."""
+    if delta is None:
+        raise ValueError("must specify delta")
+    try:
+        jx, jy = jxy
+    except (TypeError, ValueError):
+        jx = jy = jxy
+    return ham_1d_heis(L, j=(jx, jy, delta), S=S, cyclic=cyclic)
+
+
+def _ham_bilinear_biquadratic_builder(theta, S=1 / 2, cyclic=False):
+    """``cos(theta) S.S + sin(theta) (S.S)^2``, the square expanded into
+    products of single-site operators."""
+    H = SpinHam1D(S=S, cyclic=cyclic)
+    cost, sint = math.cos(theta), math.sin(theta)
+    for s in ("X", "Y", "Z"):
+        H += cost, s, s
+    for s1 in ("X", "Y", "Z"):
+        for t1 in ("X", "Y", "Z"):
+            op = _spin_op_np(s1, S) @ _spin_op_np(t1, S)
+            H += sint, op, op
+    return H
+
+
+def ham_1d_bilinear_biquadratic(L, theta=0, S=1 / 2, cyclic=False):
+    """Bilinear-biquadratic spin model as a :class:`~.tebd.LocalHam1D`."""
+    return _ham_bilinear_biquadratic_builder(
+        theta, S=S, cyclic=cyclic).build_local_ham(L)

@@ -1,6 +1,7 @@
 """quimb_torch on a CUDA GPU: the hand-written sandwich kernels (3xTF32
 for float32, FP64 tensor cores for float64) against their plain version,
-and small DMRG2, DMRG1 and ParallelDMRG runs against the CPU port.
+and small DMRG2, DMRG1, ParallelDMRG and TEBD runs against the CPU
+port.
 
 Every test here needs a GPU and skips without one. The file imports no
 JAX; on a GPU machine run it without the JAX setup of the test
@@ -254,10 +255,11 @@ def test_parallel_dmrg_matches_cpu(cuda, monkeypatch):
         decomp, "_random_start",
         lambda shape, dtype, device, seed: draw(shape, dtype, "cpu",
                                                 seed).to(device))
-    H = quimb_torch.MPO_ham_heis(16, dtype=torch.float64)
+    H = quimb_torch.MPO_ham_heis(16, dtype=torch.float64, device="cpu")
     dmrg = quimb_torch.DMRG2(H, bond_dims=8, cutoffs=1e-10,
                              p0=quimb_torch.MPS_rand_state(
-                                 16, 8, seed=36, dtype=torch.float64))
+                                 16, 8, seed=36, dtype=torch.float64,
+                                 device="cpu"))
     dmrg.sweep("R", max_bond=8, cutoff=1e-10)
     energies = {}
     for device in ("cpu", cuda):
@@ -277,3 +279,41 @@ def test_parallel_dmrg_matches_cpu(cuda, monkeypatch):
     # depends on them at about 1e-8 after a few sweeps (CPU parity tests)
     np.testing.assert_allclose(energies["cuda"], energies["cpu"], rtol=0,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-3)])
+def test_tebd_quench_matches_cpu(cuda, dtype, tol):
+    """The fused TEBD quench at L=12, max_bond 16, on the card (complex128
+    through cuSOLVER's gesvdj, complex64 through its gesvd) against the
+    port's CPU run (LAPACK): the half-chain entropy after each step."""
+    entropies = {}
+    for device in ("cpu", cuda):
+        tebd = quimb_torch.TEBD(
+            quimb_torch.MPS_neel_state(12, dtype=dtype, device=device),
+            quimb_torch.ham_1d_heis(12),
+            split_opts={"max_bond": 16, "cutoff": 1e-10})
+        entropies[str(device)] = []
+        for k in range(1, 13):
+            tebd.update_to(k * 0.05, dt=0.05)
+            entropies[str(device)].append(tebd.entropy())
+        Bs, ls = tebd._vidal
+        assert Bs.device.type == torch.device(device).type
+        assert Bs.dtype == {torch.float64: torch.complex128,
+                            torch.float32: torch.complex64}[dtype]
+        assert ls.dtype == dtype
+    # the same complex SVDs in another library. complex128: round-off over
+    # 12 * 15 batched splits. complex64: each split drops the values whose
+    # weight is below float32's resolution of the total, and which values
+    # those are differs between the libraries (1.7e-4 apart on an H100)
+    np.testing.assert_allclose(entropies["cuda"], entropies["cpu"], rtol=0,
+                               atol=tol)
+
+
+def test_entry_points_default_to_the_card(cuda):
+    """With no device, every builder puts its tensors on the card."""
+    for tensors in (quimb_torch.MPS_rand_state(8, 4),
+                    quimb_torch.MPO_ham_heis(8),
+                    quimb_torch.MPS_computational_state("01" * 4),
+                    quimb_torch.MPS_neel_state(8)):
+        assert all(t.is_cuda for t in tensors)

@@ -32,7 +32,7 @@ def _t(*xs):
 ])
 def test_mpo_ham_heis_matches(L, kw):
     want = jd._mpo_uniform_arrays(qtn.MPO_ham_heis(L, **kw))
-    got = quimb_torch.MPO_ham_heis(L, **kw)
+    got = quimb_torch.MPO_ham_heis(L, **kw, device="cpu")
     assert len(got) == L
     for g, w in zip(to_numpy(got), want):
         w = np.asarray(w)
@@ -43,10 +43,11 @@ def test_mpo_ham_heis_matches(L, kw):
 def test_mps_rand_state():
     L, chi = 14, 8
     want = jd._mps_uniform_arrays(qtn.MPS_rand_state(L, chi, seed=1))
-    got = quimb_torch.MPS_rand_state(L, chi, seed=1)
+    got = quimb_torch.MPS_rand_state(L, chi, seed=1, device="cpu")
     assert [tuple(g.shape) for g in got] == [w.shape for w in want]
     assert all(g.dtype == torch.float64 for g in got)
-    for g, h in zip(got, quimb_torch.MPS_rand_state(L, chi, seed=1)):
+    for g, h in zip(got, quimb_torch.MPS_rand_state(L, chi, seed=1,
+                                                      device="cpu")):
         assert torch.equal(g, h)
     nrm = np.ones((1, 1))
     for A in to_numpy(got):
@@ -57,7 +58,8 @@ def test_mps_rand_state():
 def test_mps_rand_state_long_chain_float32():
     """128 sites of random tensors span hundreds of decades of norm; the
     log-space normalisation keeps every float32 tensor finite."""
-    As = quimb_torch.MPS_rand_state(128, 32, seed=42, dtype=torch.float32)
+    As = quimb_torch.MPS_rand_state(128, 32, seed=42, dtype=torch.float32,
+                                    device="cpu")
     assert all(bool(torch.isfinite(A).all()) for A in As)
     nrm = np.ones((1, 1))
     for A in to_numpy(As):
@@ -105,7 +107,7 @@ def test_right_canonize_step():
 
 
 def test_mpo_identity_channels():
-    H = quimb_torch.MPO_ham_heis(6)
+    H = quimb_torch.MPO_ham_heis(6, device="cpu")
     assert td._mpo_has_identity_channels(H)
     assert td._mpo_has_identity_channels(H) == \
         jd._mpo_has_identity_channels(
@@ -165,7 +167,7 @@ def _both_engines(L, chi, seed):
     p0 = qtn.MPS_rand_state(L, chi, seed=seed)
     jdmrg = qtn.DMRG2(H, bond_dims=chi, cutoffs=0.0, p0=p0)
     Ws, As = from_tpu_arrays(jd._mpo_uniform_arrays(H),
-                             jd._mps_uniform_arrays(p0))
+                             jd._mps_uniform_arrays(p0), device="cpu")
     tdmrg = quimb_torch.DMRG2(Ws, bond_dims=chi, cutoffs=0.0, p0=As)
     return jdmrg, tdmrg
 
@@ -211,7 +213,7 @@ def test_solve_matches():
 
 
 def test_default_start_state():
-    H = quimb_torch.MPO_ham_heis(8, dtype=torch.float32)
+    H = quimb_torch.MPO_ham_heis(8, dtype=torch.float32, device="cpu")
     dmrg = quimb_torch.DMRG2(H, bond_dims=4)
     assert all(A.dtype == torch.float32 for A in dmrg.state)
     assert dmrg.energy is None

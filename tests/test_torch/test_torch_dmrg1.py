@@ -98,7 +98,7 @@ def _dmrg1_pair(H, psi, chi, ncv=4):
     the space's dimension; at 4 both run the same algorithm."""
     jdmrg = qtn.DMRG1(H, bond_dims=chi, cutoffs=0.0, p0=psi)
     Ws, As = from_tpu_arrays(jd._mpo_uniform_arrays(H),
-                             jd._mps_uniform_arrays(psi))
+                             jd._mps_uniform_arrays(psi), device="cpu")
     tdmrg = quimb_torch.DMRG1(Ws, bond_dims=chi, cutoffs=0.0, p0=As)
     for dmrg in (jdmrg, tdmrg):
         dmrg.opts["local_eig_ncv"] = ncv // 2
@@ -136,7 +136,7 @@ def test_dmrg1_default_basis_stays_variational():
     ground energy."""
     H, psi = _dmrg2_state(10, 32, seed=7, sweeps=4)
     Ws, As = from_tpu_arrays(jd._mpo_uniform_arrays(H),
-                             jd._mps_uniform_arrays(psi))
+                             jd._mps_uniform_arrays(psi), device="cpu")
     dmrg = quimb_torch.DMRG1(Ws, bond_dims=32, cutoffs=0.0, p0=As)
     for direction, canonize in [("R", True), ("L", False), ("R", False)]:
         en = dmrg.sweep(direction, max_bond=32, cutoff=0.0,
@@ -161,9 +161,10 @@ def test_dmrg1_solve():
 def test_dmrg1_calls_the_1site_solve(monkeypatch):
     """A DMRG1 sweep runs the one-site solve at every site and never the
     two-site one."""
-    H = quimb_torch.MPO_ham_heis(6)
+    H = quimb_torch.MPO_ham_heis(6, device="cpu")
     dmrg = quimb_torch.DMRG1(H, bond_dims=4,
-                             p0=quimb_torch.MPS_rand_state(6, 4, seed=1))
+                             p0=quimb_torch.MPS_rand_state(6, 4, seed=1,
+                                                           device="cpu"))
     calls = {"1site": 0}
     solve_1site = td._local_solve_1site
 
@@ -188,7 +189,7 @@ def _dmrg2_pair(L, chi, seed, method):
     p0 = qtn.MPS_rand_state(L, chi, seed=seed)
     jdmrg = qtn.DMRG2(H, bond_dims=chi, cutoffs=0.0, p0=p0)
     Ws, As = from_tpu_arrays(jd._mpo_uniform_arrays(H),
-                             jd._mps_uniform_arrays(p0))
+                             jd._mps_uniform_arrays(p0), device="cpu")
     tdmrg = quimb_torch.DMRG2(Ws, bond_dims=chi, cutoffs=0.0, p0=As)
     for dmrg in (jdmrg, tdmrg):
         dmrg.opts["bond_compress_method"] = method

@@ -56,7 +56,7 @@ def _converged(L, chi):
 
 def _port_arrays(H, psi):
     return from_tpu_arrays(jd._mpo_uniform_arrays(H),
-                           jd._mps_uniform_arrays(psi))
+                           jd._mps_uniform_arrays(psi), device="cpu")
 
 
 def _host_energy(As, Ws):
@@ -77,7 +77,8 @@ def _exact_e(L):
 
 def _random_stack(L, chi, seed):
     """A random state padded to chi: (quimb_tpu stack, port stack)."""
-    As = quimb_torch.MPS_rand_state(L, chi, seed=seed, dtype=torch.float64)
+    As = quimb_torch.MPS_rand_state(L, chi, seed=seed, dtype=torch.float64,
+                                    device="cpu")
     Ms = tj.mps_to_stack(As, chi)
     return jnp.asarray(Ms.numpy()), Ms
 
@@ -155,7 +156,8 @@ def test_canonize_passes():
     # the passes' environments and the gauge between them give the
     # state's energy at every bond
     e = _host_energy(tj.stack_to_mps(tMs),
-                     quimb_torch.MPO_ham_heis(L, dtype=torch.float64))
+                     quimb_torch.MPO_ham_heis(L, dtype=torch.float64,
+                                              device="cpu"))
     for j in range(L - 1):
         R = tRp[j + 1]
         got = (torch.einsum("awk,kr,ab,bwr->", tLe[j], R, R, tR[j + 1])
@@ -318,10 +320,11 @@ def test_converges_from_rough_seed():
     """One low-bond DMRG2 sweep, then parallel sweeps alone reach the
     chi-limited optimum."""
     L = 16
-    H = quimb_torch.MPO_ham_heis(L, dtype=torch.float64)
+    H = quimb_torch.MPO_ham_heis(L, dtype=torch.float64, device="cpu")
     dmrg = quimb_torch.DMRG2(H, bond_dims=8, cutoffs=1e-10,
                              p0=quimb_torch.MPS_rand_state(
-                                 L, 8, seed=36, dtype=torch.float64))
+                                 L, 8, seed=36, dtype=torch.float64,
+                                 device="cpu"))
     dmrg.sweep("R", max_bond=8, cutoff=1e-10)
     pd = tp.ParallelDMRG(dmrg.state, H, max_bond=24, n_segments=2)
     for _ in range(25):

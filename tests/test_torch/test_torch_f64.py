@@ -126,7 +126,7 @@ def test_f64_sweep_prepares_once_per_bond():
     p0 = qtn.MPS_rand_state(L, chi, seed=9)
     jdmrg = qtn.DMRG2(H, bond_dims=chi, cutoffs=0.0, p0=p0)
     Ws, As = from_tpu_arrays(jd._mpo_uniform_arrays(H),
-                             jd._mps_uniform_arrays(p0))
+                             jd._mps_uniform_arrays(p0), device="cpu")
     tdmrg = quimb_torch.DMRG2(Ws, bond_dims=chi, cutoffs=0.0, p0=As)
     assert tdmrg._sandwich is ck.prepare_sandwich_reference
     assert all(A.dtype == torch.float64 for A in tdmrg.state)
