@@ -9,9 +9,11 @@ It drives the 1D ground-state engine of the spin-1/2 Heisenberg chain at
 L=128, chi=256 through the package's entry points (``MPO_ham_heis``,
 ``MPS_rand_state``, ``DMRG2``, ``DMRG1``, ``ParallelDMRG``): DMRG2 on a
 float32 state, with every effective-Hamiltonian matvec in the
-hand-written 3xTF32 sandwich kernel, then ParallelDMRG from that state;
-DMRG2 on a float64 state, with every matvec in the hand-written FP64
-tensor-core (DMMA) kernel, then DMRG1 from that state. Its phases, each
+hand-written 3xTF32 sandwich kernel and every bond split by the card's
+default split (``svd:sub``, run as ``svd:sub0`` at cutoff 0), then
+ParallelDMRG from that state; DMRG2 on a float64 state, with every matvec
+in the hand-written FP64 tensor-core (DMMA) kernel, then DMRG1 from that
+state. Then the TEBD quench and the exact 20-qubit core. Its phases, each
 fatal on failure:
 
 1. the device: a CUDA GPU is required; its name and power limit are
@@ -30,7 +32,8 @@ fatal on failure:
    at least ncv * restarts * (L - 1) times and the float64 one never;
    the final state's energy, evaluated in float64 on the host, must lie
    within a relative 2e-5 of E_REF;
-5. where one bulk bond's time goes, phase by phase;
+5. where one bulk bond's time goes, phase by phase, the path's split and
+   ``gesvd``'s masked SVD both timed;
 6. the split methods at that bond's updated theta, with the center of
    the state at the bond: ``svd`` (cutoff 0 and 1e-10), ``svd:eig``,
    ``svd:sub`` (cutoff 1e-10) and ``svd:sub0``, each timed, with its
@@ -64,23 +67,44 @@ fatal on failure:
    with no device (so on the GPU). Each step is timed with a synchronised
    host clock after a warm-up of 2 dt on a copy. Every stack must be on
    the GPU, finite and in the dtype asked for; the 20 half-chain
-   entropies within 2e-4 (complex128) or 2e-3 (complex64) of the
-   reference curve in benchref/REFBASE.json; ``err`` within 1e-9
-   relative of the reference's; the final state's norm, on the host in
-   float64, within 1e-8 or 1e-5 of 1; and no sandwich kernel launched.
-   Printed, not gated: the distance to quimb_tpu's own complex128 CPU
-   curve, the discarded weight, the device's busy share over one step
-   (``torch.profiler``), and the SVD drivers of cuSOLVER on one parity
-   sweep's (32, 128, 128) batch: time and orthogonality of each.
+   entropies within 2e-4 of the reference curve in benchref/REFBASE.json
+   (both dtypes); ``err`` within 1e-9 relative of the reference's; the
+   final state's norm, on the host in float64, within 1e-8 or 1e-4 of 1;
+   the quench's own SVD route (the checked complex128 ``gesvdj``, a
+   complex64 batch taken to complex128) orthogonal on one parity sweep's
+   batch; and no sandwich kernel launched. Printed, not gated: the
+   distance to quimb_tpu's own complex128 CPU curve, the discarded
+   weight, the device's busy share over one step (``torch.profiler``),
+   the SVD drivers of cuSOLVER on that (32, 128, 128) batch, time and
+   orthogonality of each, and the batches ``gesvdj`` failed on and
+   ``gesvd`` redid;
+11. the exact 20-qubit core of benchref/measure_tpu_exact20.py (20 1.0 4)
+   through entry points called with no device: ``ham_heis(20,
+   sparse=True)``, ``groundenergy`` twice (cold, warm) and
+   ``groundstate``, then ``Evolution`` of the state "0101..." by
+   ``method="expm"`` to t = 0.25, 0.5, 0.75, 1 after a warm-up on a copy,
+   each call on a synchronised host clock. Gated: every operator and
+   state tensor on the GPU, float64 for H and the ground state, complex128
+   for the evolved state; the energy within 1e-10 relative of REFBASE's;
+   each <Z_0>, from |psi|^2 on the card, within 1e-9 of REFBASE's; the
+   final norm within 1e-10 of 1; the ELL ``SparseHam`` matvec within
+   1e-12 relative of the ``LocalTermsHam`` one on a seeded vector.
+   Printed: the matvec of each operator in float64 and complex128 (CUDA
+   events) against the bound of reading x and writing H x once, the bytes
+   the per-term loop moves, each term's time alone, the matvecs and
+   Lanczos restarts of each call, and the busy share over one warm
+   ``groundenergy`` and one expm update.
 
 The line before the last is the kernels' JSON summary, one entry per
 kernel with its launches on its paths (DMRG2 and ParallelDMRG for
 float32, DMRG2 and DMRG1 for float64; TEBD runs no hand-written kernel),
 its time against the plain einsum (the one library call that computes
-the same product) and its bound; the last line is
-``{"ok": true, "device": {...}}``.
+the same product) and its bound. The exact core runs no hand-written
+kernel: its matvec is plain PyTorch, measured in phase 11. The last line
+is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import functools
 import json
 import re
@@ -93,6 +117,7 @@ import numpy as np
 import torch
 
 import quimb_torch
+from quimb_torch import core
 from quimb_torch.ops import _build
 from quimb_torch.ops import cuda_kernels as ck
 from quimb_torch.ops import decomp
@@ -329,6 +354,7 @@ def run_main_path(dtype):
                                     device="cuda")
     dmrg = quimb_torch.DMRG2(H, bond_dims=CHI, cutoffs=0.0, p0=p0)
     opts = dmrg.opts
+    _check_default_split(dmrg, "DMRG2")
     min_launches = (max(2 * opts["local_eig_ncv"],
                         opts["local_eig_ncv_floor"])
                     * opts["local_eig_restarts"] * (L - 1))
@@ -360,6 +386,16 @@ def run_main_path(dtype):
                   f"{dtype} DMRG2 state (last sweep energy "
                   f"{dmrg.energies[-1]:.10f})")
     return dmrg, launches
+
+
+def _check_default_split(dmrg, what):
+    """The engine on the card must split by quimb_tpu's accelerator
+    default, "svd:sub" ("svd:sub0" at cutoff 0)."""
+    method = dmrg.opts["bond_compress_method"]
+    print(f"{what} bond_compress_method {method!r}, at cutoff 0 "
+          f"{dmrg._split_method(0.0)!r}", flush=True)
+    if method != "svd:sub":
+        raise AssertionError(f"{what} on the card splits by {method!r}")
 
 
 def _host_ms(fn, reps=5):
@@ -402,7 +438,8 @@ def bond_breakdown(dmrg):
     W1, W2 = dmrg._W[i], dmrg._W[i + 1]
     kw = dmrg._solve_opts()
     _, theta = D._local_solve_2site(lenv, W1, W2, renv, theta0, **kw)
-    N1, _, _ = D._split_2site(theta, CHI, 0.0, "right")
+    method = dmrg._split_method(0.0)
+    N1, _, _ = D._split_2site(theta, CHI, 0.0, "right", method=method)
     A, B = D._sandwich_operands(lenv, W1, W2, renv)
     th = theta.reshape(A.shape[2], B.shape[1])
     mat = theta.reshape(A.shape[1], B.shape[2])
@@ -417,8 +454,10 @@ def bond_breakdown(dmrg):
             A, B),
         f"  one sandwich matvec ({kw['ncv']} per solve)": lambda: heff(th),
         f"  eigh {kw['ncv']}x{kw['ncv']}": lambda: torch.linalg.eigh(T),
-        "split (masked SVD)": lambda: D._split_2site(theta, CHI, 0.0,
-                                                     "right"),
+        f"split (the path's, {method})": lambda: D._split_2site(
+            theta, CHI, 0.0, "right", method=method),
+        "split (masked SVD, svd)": lambda: D._split_2site(theta, CHI, 0.0,
+                                                          "right"),
         f"  torch.linalg.svd {tuple(mat.shape)}, gesvd": lambda: (
             torch.linalg.svd(mat, full_matrices=False, driver="gesvd")),
         "env step": lambda: D._env_step_right(lenv, torch.conj(N1), W1,
@@ -460,8 +499,7 @@ def check_splits(theta):
         prod = torch.einsum("kpc,cqr->kpqr", A1.double(), A2.double())
         res[method, cutoff] = (torch.linalg.norm(th - prod)
                                / torch.linalg.norm(th)).item()
-        # the kept columns: the mask zeroes the others, and in float32 the
-        # cumulative sum that sets it need not keep a prefix
+        # the kept columns: the mask zeroes the others
         U = A1.reshape(-1, A1.shape[-1]).double()
         nonzero = torch.linalg.norm(U, dim=0) > 0
         U = U[:, nonzero]
@@ -575,6 +613,7 @@ def run_dmrg1_path(dmrg2):
     Ws = dmrg2._W
     e2 = host_f64_energy(dmrg2.state, Ws)
     dmrg = quimb_torch.DMRG1(Ws, bond_dims=CHI, cutoffs=0.0, p0=dmrg2.state)
+    _check_default_split(dmrg, "DMRG1")
     opts = dmrg.opts
     ncv = max(2 * opts["local_eig_ncv"], opts["local_eig_ncv_floor"])
     _reset_launches()
@@ -611,11 +650,12 @@ def run_dmrg1_path(dmrg2):
 TEBD_L, TEBD_CHI, TEBD_STEPS, TEBD_DT, TEBD_CUTOFF = 64, 64, 20, 0.05, 1e-10
 TEBD_REAL = {torch.complex128: torch.float64, torch.complex64: torch.float32}
 # bounds on the largest distance of the 20 entropies from the reference
-# curve: about 2.5 times quimb_tpu's own (8.0e-5 in complex128 on a CPU,
-# 7.9e-4 in complex64 on a TPU); and on |<psi|psi> - 1| of the final state.
-# In complex64 that is the float32 rounding of 64 B-form tensors: on a CPU
-# it wanders between 1e-6 and 2e-5 from step to step, with no drift
-TEBD_ENT_TOL = {torch.complex128: 2e-4, torch.complex64: 2e-3}
+# curve: about 2.5 times quimb_tpu's own in complex128 (8.0e-5 on a CPU);
+# complex64 with a truncation mask that keeps the weight above the cutoff
+# read 7.8e-5 on an H100. And on |<psi|psi> - 1| of the final state: in
+# complex64 that is the float32 rounding of 64 B-form tensors, which on a
+# CPU wanders between 1e-6 and 2e-5 from step to step, with no drift
+TEBD_ENT_TOL = {torch.complex128: 2e-4, torch.complex64: 2e-4}
 TEBD_NORM_TOL = {torch.complex128: 1e-8, torch.complex64: 1e-4}
 # quimb_tpu's own complex128 curve of this quench, from
 # ``JAX_PLATFORMS=cpu QUIMB_TPU_X64=1 python benchref/measure_tpu_tebd.py
@@ -629,11 +669,11 @@ QUIMB_TPU_CPU_C128 = np.array([
     0.5773123813641874, 0.6185295808309791, 0.6591932696663401,
     0.6993631970176517, 0.7391166856784459,
 ])
-# cuSOLVER's SVD drivers, timed on one parity sweep's batch, and the bound
-# on ||U^H U - I||_2 and ||VH VH^H - I||_2 that the quench's own SVD
-# driver (decomp._svd_driver) must hold there: the Hastings update needs
-# isometric factors
-SVD_DRIVERS = ("gesvd", "gesvdj", None)
+# cuSOLVER's SVD drivers, timed on one parity sweep's batch, beside the
+# quench's own route (decomp.safe_svd: the checked gesvdj in complex128),
+# and the bound on ||U^H U - I||_2 and ||VH VH^H - I||_2 that the route
+# must hold there: the Hastings update needs isometric factors
+SVD_DRIVERS = ("gesvd", "gesvdj", None, "safe_svd")
 SVD_ORTHO_TOL = {torch.complex128: 1e-12, torch.complex64: 1e-5}
 
 
@@ -685,14 +725,29 @@ def svd_driver_table(theta):
           f"sweep's batch):", flush=True)
     rows = {}
     for driver in SVD_DRIVERS:
-        svd = functools.partial(torch.linalg.svd, theta, full_matrices=False,
-                                driver=driver)
-        U, _, VH = svd()
+        if driver == "safe_svd":
+            svd = functools.partial(decomp.safe_svd, theta)
+            name = "the quench's route, decomp.safe_svd (checked gesvdj" + (
+                ", via complex128)" if theta.dtype == torch.complex64
+                else ")")
+        else:
+            svd = functools.partial(torch.linalg.svd, theta,
+                                    full_matrices=False, driver=driver)
+            name = driver or "default"
+        try:
+            U, _, VH = svd()
+        except torch.linalg.LinAlgError as err:
+            # a driver of cuSOLVER alone may fail; the route may not
+            if driver == "safe_svd":
+                raise
+            print(f"  {name}: failed ({str(err).splitlines()[0]})",
+                  flush=True)
+            continue
         ms = _host_ms(svd)
         ortho_u = torch.linalg.matrix_norm(decomp.dag(U) @ U - eye, 2)
         ortho_v = torch.linalg.matrix_norm(VH @ decomp.dag(VH) - eye, 2)
         rows[driver] = (ms, ortho_u.max().item(), ortho_v.max().item())
-        print(f"  {driver or 'default'}: {ms:.3f} ms, ||U^H U - I||_2 "
+        print(f"  {name}: {ms:.3f} ms, ||U^H U - I||_2 "
               f"{rows[driver][1]:.3e}, ||VH VH^H - I||_2 "
               f"{rows[driver][2]:.3e}", flush=True)
     return rows
@@ -724,6 +779,7 @@ def run_tebd_path(dtype):
           f"{time.perf_counter() - t0:.3f} s", flush=True)
 
     _reset_launches()
+    redos = dict(decomp.SVD_REDOS)
     tebd = quimb_torch.TEBD(psi0, H, split_opts=opts)
     entropies, seconds = [], []
     for k in range(1, TEBD_STEPS + 1):
@@ -763,12 +819,15 @@ def run_tebd_path(dtype):
     if launches:
         raise AssertionError("TEBD launched a sandwich kernel")
 
+    print(f"TEBD {dtype}: SVD batches that gesvdj failed on and gesvd "
+          f"redid in the {TEBD_STEPS} steps: "
+          f"{decomp.SVD_REDOS[dtype] - redos[dtype]}",
+          flush=True)
     theta = _theta_batch(tebd)
     rows = svd_driver_table(theta)
-    driver = decomp._svd_driver(theta)
-    if not max(rows[driver][1:]) <= SVD_ORTHO_TOL[dtype]:
-        raise AssertionError(f"the SVD driver of the quench, {driver}, "
-                             f"lost orthogonality")
+    if not max(rows["safe_svd"][1:]) <= SVD_ORTHO_TOL[dtype]:
+        raise AssertionError("the SVD route of the quench lost "
+                             "orthogonality")
     share, top, wall_us, count = _busy_share(
         lambda: warm.update_to(3 * TEBD_DT, dt=TEBD_DT))
     print(f"TEBD {dtype} step 3 of the copy under torch.profiler: "
@@ -786,7 +845,193 @@ def run_tebd_path(dtype):
         raise AssertionError("the TEBD state lost its norm")
 
 
+# -- phase 11: the exact 20-qubit core ----------------------------------------
+
+EXACT_N, EXACT_T, EXACT_NT, EXACT_NCV = 20, 1.0, 4, 20
+# float64 / complex128 end to end: quimb_tpu's own CPU run of the harness
+# reaches REFBASE to 5e-15 (energy) and 7e-15 (<Z_0>)
+EXACT_E_TOL, EXACT_Z_TOL, EXACT_NORM_TOL, EXACT_MV_TOL = (1e-10, 1e-9,
+                                                          1e-10, 1e-12)
+
+
+def _exact_reference():
+    """jcmgray/quimb's run of the exact core (energy, <Z_0> at t = k/4)."""
+    ref = json.loads(Path("benchref/REFBASE.json").read_text())["exact20"]
+    return ref["groundenergy"], np.asarray(ref["z0_checkpoints"])
+
+
+@contextlib.contextmanager
+def _counted_matvecs():
+    """Counts the LocalTermsHam matvecs made inside the block."""
+    count = [0]
+    matvec = core.LocalTermsHam.matvec
+
+    def counted(self, x):
+        count[0] += 1
+        return matvec(self, x)
+
+    core.LocalTermsHam.matvec = counted
+    try:
+        yield count
+    finally:
+        core.LocalTermsHam.matvec = matvec
+
+
+def _timed(fn):
+    """(result, seconds) of ``fn()`` on a synchronised host clock."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _on_card(what, t, dtype):
+    if not (t.is_cuda and t.dtype == dtype and bool(torch.isfinite(t).all())):
+        raise AssertionError(f"{what}: {t.device} {t.dtype}, or not finite")
+
+
+def exact_matvec_table(H):
+    """The matvec of the LocalTermsHam and of the ELL SparseHam of ``H``
+    on the card, in float64 and complex128: CUDA-event ms against the
+    bound of reading x and writing H x once, and the agreement of the
+    two, gated at EXACT_MV_TOL relative."""
+    lt = quimb_torch.device_operator(H)
+    ell, build_s = _timed(lambda: core.SparseHam(H))
+    _on_card("LocalTermsHam terms", lt.mats[0], torch.float64)
+    _on_card("SparseHam values", ell.vals, torch.float64)
+    n = lt.shape[0]
+    print(f"exact core operators: LocalTermsHam of {len(lt.sites)} terms; "
+          f"ELL SparseHam ({n} x {ell.cols.shape[1]}, built on the host in "
+          f"{build_s:.3f} s)", flush=True)
+    rng = np.random.default_rng(SEED)
+    for dtype in (torch.float64, torch.complex128):
+        host = rng.standard_normal(n)
+        if dtype.is_complex:
+            host = host + 1j * rng.standard_normal(n)
+        x = _cuda(host, dtype)
+        want = lt.matvec(x)
+        rel = (torch.linalg.norm(ell.matvec(x) - want)
+               / torch.linalg.norm(want)).item()
+        nbytes = 2 * n * dtype.itemsize
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        # the loop's own traffic: the zero fill, then per term one read of
+        # x and a read and a write of the output
+        loop_bytes = (1 + 3 * len(lt.sites)) * n * dtype.itemsize
+        ms = {"LocalTermsHam": [], "SparseHam": []}
+        for name in ("LocalTermsHam", "SparseHam", "SparseHam",
+                     "LocalTermsHam"):
+            op = lt if name == "LocalTermsHam" else ell
+            ms[name].append(_event_ms(op.matvec, (x,), reps=20))
+        print(f"exact matvec {dtype}: LocalTermsHam {ms['LocalTermsHam']} "
+              f"ms, ELL SparseHam {ms['SparseHam']} ms; bound (2 x {n} x "
+              f"{dtype.itemsize} B over {PEAK_BYTES / 1e12:.2f} TB/s) "
+              f"{bound_ms:.4f} ms; the per-term loop moves "
+              f"{loop_bytes / 1e9:.3f} "
+              f"GB ({loop_bytes / PEAK_BYTES * 1e3:.4f} ms at that rate); "
+              f"ELL against LocalTermsHam: relative {rel:.3e} (bound "
+              f"{EXACT_MV_TOL:.0e})", flush=True)
+        if not rel <= EXACT_MV_TOL:
+            raise AssertionError("the ELL matvec disagrees with the "
+                                 "LocalTermsHam one")
+        if dtype.is_complex:
+            terms = []
+            for sites, m in zip(lt.sites, lt.mats):
+                one = core.LocalTermsHam(lt.dims, {sites: to_host(m)})
+                ms_one = _event_ms(one.matvec, (x,), reps=10)
+                terms.append(f"{sites}: {ms_one:.4f}")
+            print(f"  each term alone (zero fill + one product), ms: "
+                  + ", ".join(terms), flush=True)
+        del x, want
+    del ell
+    torch.cuda.empty_cache()
+
+
+def run_exact_path():
+    """The exact core through the entry points, with no device."""
+    e_ref, z_ref = _exact_reference()
+    H, build_s = _timed(lambda: quimb_torch.ham_heis(EXACT_N, sparse=True))
+    print(f"exact core: ham_heis({EXACT_N}, sparse=True) on the host: "
+          f"{build_s:.3f} s, {H.nnz} nonzeros", flush=True)
+    exact_matvec_table(H)
+
+    energies = []
+    for label in ("cold", "warm"):
+        with _counted_matvecs() as count:
+            e, secs = _timed(lambda: quimb_torch.groundenergy(H))
+        _on_card("groundenergy", e, torch.float64)
+        energies.append(float(e))
+        print(f"groundenergy ({label}): {energies[-1]!r} in {secs:.3f} s, "
+              f"{count[0]} matvecs, {count[0] // EXACT_NCV} Lanczos restarts "
+              f"of {EXACT_NCV}", flush=True)
+    psi, secs = _timed(lambda: quimb_torch.groundstate(H))
+    _on_card("groundstate", psi, torch.float64)
+    op = quimb_torch.device_operator(H)
+    _on_card("device_operator", op.mats[0], torch.float64)
+    rayleigh = torch.vdot(psi[:, 0], op @ psi[:, 0]).item() / torch.vdot(
+        psi[:, 0], psi[:, 0]).item()
+    print(f"groundstate: {secs:.3f} s, its Rayleigh quotient {rayleigh!r}",
+          flush=True)
+    rel = max(abs(e - e_ref) for e in (*energies, rayleigh)) / abs(e_ref)
+    print(f"exact core energy against REFBASE's {e_ref!r}: relative "
+          f"{rel:.3e} (bound {EXACT_E_TOL:.0e})", flush=True)
+    if not rel <= EXACT_E_TOL:
+        raise AssertionError("the exact core's energy misses REFBASE's")
+    share, top, wall_us, count = _busy_share(
+        lambda: quimb_torch.groundenergy(H))
+    print(f"groundenergy under torch.profiler: {wall_us / 1e3:.3f} ms wall, "
+          f"{count} device activities, busy share "
+          + ("not measured" if share is None else f"{share:.4f}"), flush=True)
+    for name, us in top:
+        print(f"  {us / 1e3:.3f} ms  {name[:100]}", flush=True)
+    del psi, op
+
+    p0 = quimb_torch.computational_state("01" * (EXACT_N // 2))
+    _on_card("computational_state", p0, torch.complex128)
+    bit0 = (torch.arange(2**EXACT_N, device=p0.device) >> (EXACT_N - 1)) & 1
+    zdiag = (1 - 2 * bit0).to(torch.float64)
+
+    def z0(psi):
+        p = torch.abs(psi.reshape(-1)) ** 2
+        return (torch.sum(p * zdiag) / torch.sum(p)).item()
+
+    warm = quimb_torch.Evolution(p0, H, method="expm")
+    _, secs = _timed(lambda: warm.update_to(EXACT_T / EXACT_NT))
+    print(f"Evolution warm-up (one update on a copy): {secs:.3f} s",
+          flush=True)
+    evo = quimb_torch.Evolution(p0, H, method="expm")
+    zs, seconds = [], []
+    for k in range(1, EXACT_NT + 1):
+        with _counted_matvecs() as count:
+            _, secs = _timed(lambda: evo.update_to(EXACT_T * k / EXACT_NT))
+        seconds.append(secs)
+        zs.append(z0(evo.pt))
+        print(f"Evolution t={evo.t:.3f}: <Z_0> {zs[-1]!r}, {secs:.3f} s, "
+              f"{count[0]} matvecs", flush=True)
+    _on_card("Evolution state", evo.pt, torch.complex128)
+    dist = np.abs(np.asarray(zs) - z_ref)
+    nrm = torch.linalg.norm(evo.pt).item()
+    print(f"Evolution: {statistics.mean(seconds):.3f} s per update (mean of "
+          f"{EXACT_NT}); <Z_0> against REFBASE: max {dist.max():.3e} (bound "
+          f"{EXACT_Z_TOL:.0e}); | |psi| - 1 | {abs(nrm - 1):.3e} (bound "
+          f"{EXACT_NORM_TOL:.0e})", flush=True)
+    if not dist.max() <= EXACT_Z_TOL:
+        raise AssertionError("the exact core's <Z_0> misses REFBASE's")
+    if not abs(nrm - 1) <= EXACT_NORM_TOL:
+        raise AssertionError("the evolved state lost its norm")
+    share, top, wall_us, count = _busy_share(
+        lambda: warm.update_to(2 * EXACT_T / EXACT_NT))
+    print(f"expm update under torch.profiler: {wall_us / 1e3:.3f} ms wall, "
+          f"{count} device activities, busy share "
+          + ("not measured" if share is None else f"{share:.4f}"), flush=True)
+    for name, us in top:
+        print(f"  {us / 1e3:.3f} ms  {name[:100]}", flush=True)
+    del warm, evo
+    torch.cuda.empty_cache()
+
+
 def main():
+    t_start = time.perf_counter()
     check_device()
     build_kernels()
     max_abs_err, north = check_kernel()
@@ -802,6 +1047,10 @@ def main():
     del dmrg
     for dtype in TEBD_REAL:
         run_tebd_path(dtype)
+    torch.cuda.empty_cache()
+    run_exact_path()
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": "sandwich_matvec",
         "route": "cuda",

@@ -1,11 +1,13 @@
-"""Carry arrays between quimb_tpu and quimb_torch.
+"""Carry arrays and operators between quimb_tpu and quimb_torch.
 
 The two packages share the uniform array layout of the DMRG engine —
 MPO tensors ``(wl, wr, u, d)`` and MPS tensors ``(l, p, r)`` — so a
-state or operator crosses as numpy arrays, with no reshaping. Tensors
-land on ``device``, the GPU unless the caller names another.
+state or operator crosses as numpy arrays, with no reshaping; a sparse
+Hamiltonian of the exact layer crosses as its scipy matrix. Tensors land
+on ``device``, the GPU unless the caller names another.
 """
 
+from .core import LocalTermsHam, SparseHam
 from .ops.backend import resolve_device, to_device, to_host
 
 
@@ -25,6 +27,19 @@ def from_tpu_arrays(Ws, As, device=None, dtype=None):
     device = resolve_device(device)
     return ([to_device(W, device=device, dtype=dtype) for W in Ws],
             from_tpu_mps(As, device=device, dtype=dtype))
+
+
+def from_tpu_operator(H, device=None):
+    """A scipy matrix from quimb_tpu's ``ham_from_terms(..., sparse=True)``
+    -> the port's :class:`LocalTermsHam` of the local terms quimb_tpu
+    recorded on it (``H._quimb_tpu_local_terms``: a tuple and numpy
+    arrays, so nothing of JAX), or a :class:`SparseHam` of the matrix
+    where it recorded none."""
+    lt = getattr(H, "_quimb_tpu_local_terms", None)
+    if lt is not None:
+        dims, terms = lt
+        return LocalTermsHam(dims, terms, device=device)
+    return SparseHam(H, device=device)
 
 
 def to_numpy(tensors):

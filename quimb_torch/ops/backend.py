@@ -18,6 +18,18 @@ def resolve_device(device):
     return device
 
 
+def complex_dtype(dtype):
+    """The complex dtype of ``dtype``'s precision: complex64 for float32 and
+    complex64, complex128 otherwise."""
+    return (torch.complex64 if dtype in (torch.float32, torch.complex64)
+            else torch.complex128)
+
+
+def numpy_dtype(dtype):
+    """The numpy dtype of the torch dtype ``dtype``."""
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
 def to_device(x, device=None, dtype=None):
     """Array-like or tensor -> tensor on ``device`` with ``dtype`` (either
     left as it is when ``None``). Host arrays are copied, so the tensor

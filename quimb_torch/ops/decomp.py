@@ -79,6 +79,15 @@ def _random_start(shape, dtype, device, seed):
 # -- factorizations ----------------------------------------------------------
 
 
+#: complex SVD batches on CUDA that ``gesvdj`` failed to converge on and
+#: ``gesvd`` redid on the card, by the dtype of the input
+SVD_REDOS = {torch.complex128: 0, torch.complex64: 0}
+
+
+def _svd_call(x, driver):
+    return torch.linalg.svd(x, full_matrices=False, driver=driver)
+
+
 def _svd_driver(x):
     """cuSOLVER driver of every SVD of ``x``'s device and dtype, LAPACK's
     default on the CPU. Measured on an H100:
@@ -87,22 +96,39 @@ def _svd_driver(x):
       factors of the 512 x 512 DMRG splits with ||U^T U - I|| ~ 1e-3, and
       the sweep energies drifted up by 1e-3 per sweep; ``gesvd`` keeps it
       at ~6e-6.
-    - complex128: ``gesvdj``. On TEBD's (32, 128, 128) batches it keeps
-      ||U^H U - I||_2 at 1.6e-14 and takes 39-44 ms, against 285-309 ms
-      for ``gesvd``, whose per-matrix loop is bound by its kernel launches.
-    - complex64: ``gesvd``. ``gesvdj`` failed to converge on a theta of
-      the L=64 quench.
+    - complex: ``gesvdj`` in complex128, checked (:func:`_checked_gesvdj`).
+      On TEBD's (32, 128, 128) batches it keeps ||U^H U - I||_2 at 1.6e-14
+      and takes 39-44 ms, against 285-309 ms for ``gesvd``, whose
+      per-matrix loop is bound by its kernel launches. A complex64 input
+      is taken to complex128 first: complex64's own ``gesvdj`` failed to
+      converge on a theta of the L=64 quench, and its ``gesvd`` took
+      253-328 ms a parity sweep.
     """
     if not x.is_cuda:
         return None
-    return "gesvdj" if x.dtype == torch.complex128 else "gesvd"
+    return "gesvdj" if x.is_complex() else "gesvd"
+
+
+def _checked_gesvdj(x):
+    """``gesvdj`` of ``x`` in complex128. Where it fails to converge, the
+    same batch is redone with ``gesvd`` on the card and counted in
+    :data:`SVD_REDOS`; a second failure raises."""
+    try:
+        return _svd_call(x.to(torch.complex128), "gesvdj")
+    except torch.linalg.LinAlgError:
+        SVD_REDOS[x.dtype] += 1
+        return _svd_call(x.to(torch.complex128), "gesvd")
 
 
 def safe_svd(x):
-    """Thin SVD of (a batch of) matrices, real or complex. quimb_tpu pads
-    rectangular inputs to square ones on the TPU; cuSOLVER and LAPACK take
-    them as they are."""
-    return torch.linalg.svd(x, full_matrices=False, driver=_svd_driver(x))
+    """Thin SVD of (a batch of) matrices, real or complex, by the driver
+    of :func:`_svd_driver`. quimb_tpu pads rectangular inputs to square
+    ones on the TPU; cuSOLVER and LAPACK take them as they are."""
+    driver = _svd_driver(x)
+    if driver != "gesvdj":
+        return _svd_call(x, driver)
+    U, s, VH = _checked_gesvdj(x)
+    return U.to(x.dtype), s.to(x.real.dtype), VH.to(x.dtype)
 
 
 def safe_qr(x):
@@ -169,11 +195,14 @@ def _truncate_mask_absorb(U, s, VH, max_bond, cutoff, cutoff_mode,
     skept = s[..., :k]
 
     sp = s * s if cutoff_mode in (3, 4) else s
-    csp = torch.cumsum(sp, dim=-1)
-    tot = csp[..., -1:]
-    # exclusive prefix sums: value i is kept if the sum *before* it has
-    # not yet crossed the threshold (the reference counts `above + 1`)
-    csp_exc = csp - sp
+    # tail sums, tail[i] = sum_{j >= i} sp[j]: value i is kept while the
+    # weight from it on is above the cutoff. quimb_tpu tests the exclusive
+    # prefix sums against tot - cutoff instead, the same test in exact
+    # arithmetic; but in float32 those sums reach tot early and drop the
+    # tail below float32's resolution of tot at any cutoff. A tail sum
+    # holds its small values, so every nonzero value passes cutoff 0.
+    tail = torch.flip(torch.cumsum(torch.flip(sp, (-1,)), dim=-1), (-1,))
+    tot = tail[..., 0:1]
 
     idx = torch.arange(k, device=s.device)
     if cutoff_mode == 1:
@@ -181,9 +210,9 @@ def _truncate_mask_absorb(U, s, VH, max_bond, cutoff, cutoff_mode,
     elif cutoff_mode == 2:
         mask = skept > cutoff * skept[..., 0:1]
     elif cutoff_mode in (4, 6):
-        mask = csp_exc[..., :k] < tot * (1 - cutoff)
+        mask = tail[..., :k] > cutoff * tot
     else:
-        mask = csp_exc[..., :k] < tot - cutoff
+        mask = tail[..., :k] > cutoff
     # always keep at least one value
     mask = torch.logical_or(mask, idx == 0)
     rank = torch.sum(mask, dim=-1)

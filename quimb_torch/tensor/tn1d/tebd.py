@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ...ops import decomp
-from ...ops.backend import resolve_device, to_device, to_host
+from ...ops.backend import complex_dtype, resolve_device, to_device, to_host
 from .dmrg import _right_canonize_step
 
 
@@ -136,11 +136,6 @@ class LocalHam1D:
 
     def __repr__(self):
         return f"<LocalHam1D(L={self.L}, cyclic={self.cyclic})>"
-
-
-def _complex_dtype(dtype):
-    return (torch.complex64 if dtype in (torch.float32, torch.complex64)
-            else torch.complex128)
 
 
 # -- the fused path -----------------------------------------------------------
@@ -373,7 +368,7 @@ class TEBD:
         self.imag = imag
         self._dtype = p0[0].dtype
         if not imag and not self._dtype.is_complex:
-            self._dtype = _complex_dtype(self._dtype)
+            self._dtype = complex_dtype(self._dtype)
         self._pt = [A.to(self._dtype, copy=True) for A in p0]
         self._device = p0[0].device
         self.fused = fused

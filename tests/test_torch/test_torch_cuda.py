@@ -1,7 +1,7 @@
 """quimb_torch on a CUDA GPU: the hand-written sandwich kernels (3xTF32
 for float32, FP64 tensor cores for float64) against their plain version,
-and small DMRG2, DMRG1, ParallelDMRG and TEBD runs against the CPU
-port.
+small DMRG2, DMRG1, ParallelDMRG and TEBD runs against the CPU port, the
+checked complex SVD and the exact layer's matvecs and solvers.
 
 Every test here needs a GPU and skips without one. The file imports no
 JAX; on a GPU machine run it without the JAX setup of the test
@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import quimb_torch
+from quimb_torch import core
 from quimb_torch.ops import cuda_kernels as ck
 
 pytestmark = pytest.mark.cuda
@@ -108,6 +109,14 @@ def test_kernel_rejects(cuda):
         ck.sandwich_matvec(a, th.cpu(), b)
 
 
+def _dmrg2(H, p0, bond_dims, split="svd"):
+    """DMRG2 with one split on every device: the card's default is the
+    subspace split, the CPU's the SVD."""
+    dmrg = quimb_torch.DMRG2(H, bond_dims=bond_dims, cutoffs=0.0, p0=p0)
+    dmrg.opts["bond_compress_method"] = split
+    return dmrg
+
+
 def test_dmrg_matches_cpu(cuda):
     """A float64 DMRG2 run through the kernel gives the CPU port's
     energies (the plain einsum there)."""
@@ -115,7 +124,7 @@ def test_dmrg_matches_cpu(cuda):
     for device in ("cpu", cuda):
         H = quimb_torch.MPO_ham_heis(16, device=device)
         p0 = quimb_torch.MPS_rand_state(16, 8, seed=1, device=device)
-        dmrg = quimb_torch.DMRG2(H, bond_dims=16, cutoffs=0.0, p0=p0)
+        dmrg = _dmrg2(H, p0, 16)
         energies[str(device)] = [
             dmrg.sweep(d, max_bond=16, cutoff=0.0, canonize=d == "R")
             for d in "RLRL"
@@ -133,7 +142,7 @@ def test_dmrg_float32_through_tf32_kernel(cuda):
         H = quimb_torch.MPO_ham_heis(16, dtype=dtype, device=device)
         p0 = quimb_torch.MPS_rand_state(16, 8, seed=1, dtype=dtype,
                                         device=device)
-        dmrg = quimb_torch.DMRG2(H, bond_dims=16, cutoffs=0.0, p0=p0)
+        dmrg = _dmrg2(H, p0, 16)
         before = dict(ck.LAUNCHES)
         energies[str(device)] = [
             dmrg.sweep(d, max_bond=16, cutoff=0.0, canonize=d == "R")
@@ -159,7 +168,7 @@ def test_dmrg_float64_through_dmma_kernel(cuda):
         H = quimb_torch.MPO_ham_heis(16, dtype=torch.float64, device=device)
         p0 = quimb_torch.MPS_rand_state(16, 8, seed=2, dtype=torch.float64,
                                         device=device)
-        dmrg = quimb_torch.DMRG2(H, bond_dims=16, cutoffs=0.0, p0=p0)
+        dmrg = _dmrg2(H, p0, 16)
         energies[str(device)] = []
         for d in "RLRL":
             before = dict(ck.LAUNCHES)
@@ -173,6 +182,116 @@ def test_dmrg_float64_through_dmma_kernel(cuda):
     # float64 on both; the sums run in other orders
     np.testing.assert_allclose(energies["cuda"], energies["cpu"],
                                rtol=1e-10)
+
+
+def test_dmrg_default_split_on_the_card(cuda, monkeypatch):
+    """On the card DMRG2 and DMRG1 split by quimb_tpu's accelerator
+    default, "svd:sub" ("svd:sub0" at cutoff 0), and DMRG2's sweeps on it
+    follow a CPU run of the same split from the same start draws."""
+    from quimb_torch.ops import decomp
+
+    draw = decomp._random_start
+    # the start drawn on the CPU, so that both devices iterate from it
+    monkeypatch.setattr(
+        decomp, "_random_start",
+        lambda shape, dtype, device, seed: draw(shape, dtype, "cpu",
+                                                seed).to(device))
+    H = quimb_torch.MPO_ham_heis(16, device=cuda)
+    p0 = quimb_torch.MPS_rand_state(16, 8, seed=1, device=cuda)
+    assert quimb_torch.DMRG2(H, p0=p0).opts["bond_compress_method"] == \
+        "svd:sub"
+    assert quimb_torch.DMRG1(H, p0=p0).opts["bond_compress_method"] == \
+        "svd:sub"
+    energies = {}
+    for device in ("cpu", cuda):
+        H = quimb_torch.MPO_ham_heis(16, device=device)
+        p0 = quimb_torch.MPS_rand_state(16, 8, seed=1, device=device)
+        dmrg = _dmrg2(H, p0, 16, split="svd:sub")
+        energies[str(device)] = [
+            dmrg.sweep(d, max_bond=16, cutoff=0.0, canonize=d == "R")
+            for d in "RLRL"
+        ]
+    # float64 on both from one start; the bond bases' signs come from
+    # cuSOLVER on the card and LAPACK on the CPU, and the chi=16 subspace
+    # split depends on them: 1.6e-6 apart after four sweeps on an H100
+    np.testing.assert_allclose(energies["cuda"], energies["cpu"], rtol=0,
+                               atol=1e-5)
+
+
+def test_complex_svd_redone_on_the_card(cuda, monkeypatch):
+    """Where gesvdj fails to converge, the complex SVD redoes the batch
+    with gesvd on the card, counts it, and returns its factors; a failure
+    of gesvd too raises."""
+    from quimb_torch.ops import decomp
+
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((3, 12, 10)) + 1j * rng.standard_normal(
+        (3, 12, 10))
+    call = decomp._svd_call
+    drivers = []
+
+    def failing_gesvdj(a, driver):
+        drivers.append((a.dtype, a.device.type, driver))
+        if driver == "gesvdj":
+            raise torch.linalg.LinAlgError("gesvdj failed to converge")
+        return call(a, driver)
+
+    monkeypatch.setattr(decomp, "_svd_call", failing_gesvdj)
+    for dtype, tol in ((torch.complex128, 1e-12), (torch.complex64, 1e-5)):
+        t = torch.as_tensor(x, dtype=dtype, device=cuda)
+        before = dict(decomp.SVD_REDOS)
+        drivers.clear()
+        U, s, VH = decomp.safe_svd(t)
+        assert drivers == [(torch.complex128, "cuda", "gesvdj"),
+                           (torch.complex128, "cuda", "gesvd")]
+        assert decomp.SVD_REDOS == {**before, dtype: before[dtype] + 1}
+        assert U.dtype == VH.dtype == dtype and U.is_cuda
+        rec = (U * s.to(dtype)[..., None, :]) @ VH
+        rel = torch.linalg.norm(rec - t) / torch.linalg.norm(t)
+        assert rel.item() <= tol
+
+    monkeypatch.setattr(decomp, "_svd_call", lambda a, driver: (
+        _ for _ in ()).throw(torch.linalg.LinAlgError("no convergence")))
+    with pytest.raises(torch.linalg.LinAlgError):
+        decomp.safe_svd(torch.as_tensor(x, device=cuda))
+
+
+def test_exact_matvecs_on_the_card(cuda):
+    """The LocalTermsHam and ELL SparseHam matvecs of ham_heis(12) on the
+    card against the dense H, real and complex vectors."""
+    H = quimb_torch.ham_heis(12, sparse=True)
+    Hd = H.toarray()
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal(2**12)
+    ops = (quimb_torch.device_operator(H), core.SparseHam(H, device=cuda))
+    for v in (x, x + 1j * rng.standard_normal(2**12)):
+        want = Hd @ v
+        for op in ops:
+            got = op.matvec(torch.as_tensor(v, device=cuda))
+            assert got.is_cuda
+            # float64 sums of at most 12 products per entry
+            np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0,
+                                       atol=1e-12 * np.abs(want).max())
+
+
+def test_exact_core_on_the_card(cuda):
+    """groundenergy and Evolution at N=12 through entry points called with
+    no device: everything on the card, and the CPU port's numbers."""
+    H = quimb_torch.ham_heis(12, sparse=True)
+    e = quimb_torch.groundenergy(H)
+    assert e.is_cuda and e.dtype == torch.float64
+    # float64 Lanczos from one start vector on both
+    assert float(e) == pytest.approx(
+        float(quimb_torch.groundenergy(H, device="cpu")), rel=1e-12)
+    states = {}
+    for device in (None, "cpu"):
+        p0 = quimb_torch.computational_state("01" * 6, device=device)
+        evo = quimb_torch.Evolution(p0, H, method="expm")
+        evo.update_to(0.5)
+        states[device] = evo.pt
+    assert states[None].is_cuda and states[None].dtype == torch.complex128
+    np.testing.assert_allclose(states[None].cpu().numpy(),
+                               states["cpu"].numpy(), rtol=0, atol=1e-12)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -284,9 +403,10 @@ def test_parallel_dmrg_matches_cpu(cuda, monkeypatch):
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
                                        (torch.float32, 1e-3)])
 def test_tebd_quench_matches_cpu(cuda, dtype, tol):
-    """The fused TEBD quench at L=12, max_bond 16, on the card (complex128
-    through cuSOLVER's gesvdj, complex64 through its gesvd) against the
-    port's CPU run (LAPACK): the half-chain entropy after each step."""
+    """The fused TEBD quench at L=12, max_bond 16, on the card (through
+    cuSOLVER's checked gesvdj in complex128, for complex64 too) against
+    the port's CPU run (LAPACK): the half-chain entropy after each
+    step."""
     entropies = {}
     for device in ("cpu", cuda):
         tebd = quimb_torch.TEBD(
@@ -303,9 +423,10 @@ def test_tebd_quench_matches_cpu(cuda, dtype, tol):
                             torch.float32: torch.complex64}[dtype]
         assert ls.dtype == dtype
     # the same complex SVDs in another library. complex128: round-off over
-    # 12 * 15 batched splits. complex64: each split drops the values whose
-    # weight is below float32's resolution of the total, and which values
-    # those are differs between the libraries (1.7e-4 apart on an H100)
+    # 12 * 15 batched splits. complex64: the card's SVD runs in complex128,
+    # the CPU's in complex64 (1.7e-4 apart on an H100 when both ran in
+    # complex64 and the mask dropped the weight below float32's
+    # resolution of the total)
     np.testing.assert_allclose(entropies["cuda"], entropies["cpu"], rtol=0,
                                atol=tol)
 

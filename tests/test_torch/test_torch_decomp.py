@@ -106,3 +106,66 @@ def test_small_helpers():
     v = np.array([0.0, -2.0, 3.0, 1j])
     np.testing.assert_allclose(tdecomp.sgn(torch.from_numpy(v)).numpy(),
                                np.asarray(jdecomp.sgn(jnp.asarray(v))))
+
+
+def _masked_rank(s, cutoff, cutoff_mode):
+    eye = torch.eye(s.shape[-1], dtype=s.dtype)
+    _, s_out, _, rank = tdecomp._truncate_mask_absorb(
+        eye, s, eye, max_bond=-1, cutoff=cutoff, cutoff_mode=cutoff_mode,
+        renorm=0, absorb=None)
+    return int(rank), s_out
+
+
+def test_float32_mask_keeps_the_weight_above_the_cutoff():
+    """A float32 spectrum whose s^2 spans 1e10: at cutoff 0 the mask keeps
+    every nonzero value (quimb_tpu's, whose float32 prefix sums reach the
+    total early, keeps a fraction), and at random cutoffs of every mode it
+    keeps as many as a float64 mask of the same values."""
+    rng = np.random.default_rng(21)
+    s = np.sort(10 ** rng.uniform(-5, 0, 200))[::-1].astype(np.float32)
+    s32 = torch.as_tensor(s)
+    rank, s_out = _masked_rank(s32, 0.0, 4)
+    assert rank == 200 and bool((s_out > 0).all())
+    eye = jnp.eye(200, dtype=jnp.float32)
+    jrank = int(jdecomp._truncate_mask_absorb(
+        eye, jnp.asarray(s), eye, max_bond=-1, cutoff=0.0, cutoff_mode=4,
+        renorm=0, absorb=None)[3])
+    assert jrank < 200
+    s64 = s32.double()
+    for cutoff_mode in (1, 2, 3, 4, 5, 6):
+        for cutoff in 10 ** rng.uniform(-12, -1, 10):
+            assert _masked_rank(s32, cutoff, cutoff_mode)[0] == \
+                _masked_rank(s64, cutoff, cutoff_mode)[0]
+    # the zeros past a spectrum's rank go, the first value always stays
+    assert _masked_rank(torch.tensor([2.0, 1.0, 0.0, 0.0]), 0.0, 4)[0] == 2
+    assert _masked_rank(torch.zeros(3), 0.5, 4)[0] == 1
+
+
+def test_complex_svd_redo_counts(monkeypatch):
+    """The checked gesvdj's control flow, with the cuSOLVER call stubbed:
+    a convergence failure is redone by gesvd and counted, in complex128
+    for a complex64 input too; a second failure raises."""
+    calls = []
+
+    def svd_call(x, driver):
+        calls.append((x.dtype, driver))
+        if driver == "gesvdj":
+            raise torch.linalg.LinAlgError("gesvdj failed to converge")
+        return torch.linalg.svd(x, full_matrices=False)
+
+    monkeypatch.setattr(tdecomp, "_svd_call", svd_call)
+    x = torch.as_tensor(np.random.default_rng(22).standard_normal((4, 3)),
+                        dtype=torch.complex64)
+    before = dict(tdecomp.SVD_REDOS)
+    U, s, VH = tdecomp._checked_gesvdj(x)
+    assert calls == [(torch.complex128, "gesvdj"),
+                     (torch.complex128, "gesvd")]
+    assert tdecomp.SVD_REDOS == {**before,
+                                 torch.complex64: before[torch.complex64] + 1}
+    assert U.dtype == torch.complex128
+    # no driver on the CPU: LAPACK's default, unchecked
+    assert tdecomp._svd_driver(x) is None
+    monkeypatch.setattr(tdecomp, "_svd_call", lambda x, driver: (
+        _ for _ in ()).throw(torch.linalg.LinAlgError("no convergence")))
+    with pytest.raises(torch.linalg.LinAlgError):
+        tdecomp._checked_gesvdj(x)

@@ -219,3 +219,23 @@ def test_default_start_state():
     assert dmrg.energy is None
     en = dmrg.sweep("R", max_bond=4, cutoff=0.0)
     assert np.isfinite(en)
+
+
+def test_default_split_by_device():
+    """quimb_tpu's defaults: its accelerator split on a GPU, its CPU split
+    on the CPU (no tensor is made)."""
+    from quimb_torch.tensor.tn1d.dmrg import get_default_opts
+
+    assert get_default_opts(torch.device("cuda"))["bond_compress_method"] \
+        == "svd:sub"
+    assert get_default_opts("cuda:0")["bond_compress_method"] == "svd:sub"
+    assert get_default_opts(torch.device("cpu"))["bond_compress_method"] \
+        == "svd"
+    H = quimb_torch.MPO_ham_heis(6, device="cpu")
+    for engine in (quimb_torch.DMRG2, quimb_torch.DMRG1):
+        dmrg = engine(H, bond_dims=4)
+        assert dmrg.opts["bond_compress_method"] == "svd"
+        assert dmrg._split_method(0.0) == "svd"
+        dmrg.opts["bond_compress_method"] = "svd:sub"
+        assert dmrg._split_method(0.0) == "svd:sub0"
+        assert dmrg._split_method(1e-10) == "svd:sub"

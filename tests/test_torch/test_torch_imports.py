@@ -21,6 +21,8 @@ def _run(code, *args):
 def test_import_never_imports_jax():
     res = _run(
         "import sys, quimb_torch, quimb_torch.tensor, quimb_torch.convert\n"
+        "import quimb_torch.core, quimb_torch.linalg.base_linalg\n"
+        "import quimb_torch.evo, quimb_torch.gen.states\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
     )
