@@ -333,6 +333,13 @@ def sandwich_bound(dtype):
 
 def host_f64_energy(As, Ws):
     """⟨ψ|H|ψ⟩/⟨ψ|ψ⟩ of the state in float64 numpy (bench.py:333-348)."""
+    energy, norm = host_f64_sweep(As, Ws)
+    return energy / norm
+
+
+def host_f64_sweep(As, Ws):
+    """(⟨ψ|H|ψ⟩, ⟨ψ|ψ⟩) of the state by the sweep of bench.py:333-348, in
+    float64 numpy on the host."""
     env = np.ones((1, 1, 1))
     nrm = np.ones((1, 1))
     for A, W in zip(As, Ws):
@@ -343,7 +350,7 @@ def host_f64_energy(As, Ws):
         env = np.einsum("byux,bua->ayx", env, Ah.conj(), optimize=True)
         nrm = np.einsum("bk,kdx->bdx", nrm, Ah, optimize=True)
         nrm = np.einsum("bdx,bda->ax", nrm, Ah.conj(), optimize=True)
-    return float(env.reshape(())) / float(nrm.reshape(()))
+    return float(env.reshape(())), float(nrm.reshape(()))
 
 
 def run_main_path(dtype):
@@ -643,6 +650,256 @@ def run_dmrg1_path(dmrg2):
     if not rise <= 1e-9:
         raise AssertionError("DMRG1 raised the DMRG2 state's energy")
     return launches
+
+
+# -- phase 12: the tensor-network layer on the north-star state --------------
+
+# bounds, relative: the <psi|psi> contraction against the host sweep (two
+# float64 sums over 256 tensors in different orders); each route's energy
+# ratio against the host sweep's; the pair's product after the compression
+# against the rank-128 truncation of the fused pair by torch.linalg.svd;
+# and the ket's norm across the canonisation (a QR and its product)
+TN_NORM_TOL, TN_ENERGY_TOL, TN_SPLIT_TOL, TN_CANON_TOL = (1e-12, 1e-10,
+                                                          1e-10, 1e-12)
+TN_BOND, TN_MAX_BOND = 64, 128
+
+
+def _tn_scalar(x):
+    """A full contraction's value as a Python float: a scalar tensor, or a
+    tensor whose remaining indices (the MPO's size-1 ends) have size 1."""
+    data = x.data if isinstance(x, quimb_torch.Tensor) else x
+    return float(data.reshape(()))
+
+
+def _tn_networks(As, Ws):
+    """The ket, operator and bra networks of <psi|H|psi>, built through
+    the public API as make_overlap builds them: the bra is the ket's
+    conjugate with its inner indices mangled and its physical indices
+    renamed p -> q, the operator's upper indices."""
+    Tensor, TensorNetwork = quimb_torch.Tensor, quimb_torch.TensorNetwork
+    ket = TensorNetwork([
+        Tensor(A, inds=(f"k{i}", f"p{i}", f"k{i + 1}"),
+               tags={f"I{i}", "KET"}) for i, A in enumerate(As)])
+    ham = TensorNetwork([
+        Tensor(W, inds=(f"h{i}", f"h{i + 1}", f"q{i}", f"p{i}"),
+               tags={f"I{i}", "HAM"}) for i, W in enumerate(Ws)])
+    bra = ket.conj(mangle_inner=True).reindex(
+        {f"p{i}": f"q{i}" for i in range(len(As))})
+    bra.retag_({"KET": "BRA"})
+    return ket, ham, bra
+
+
+def _tn_search(tn, optimize, output_inds=None):
+    """The contraction expression of ``tn`` and the host seconds of its
+    path search (a fresh search, not a cache hit)."""
+    from quimb_torch.ops import contraction as C
+
+    C._EXPR_CACHE.clear()
+    t0 = time.perf_counter()
+    info = tn.contraction_info(output_inds, optimize)
+    return info, time.perf_counter() - t0
+
+
+def _tn_timed(fn, reps=3):
+    """(result, seconds): a warm call, then the median of ``reps`` calls
+    on a synchronised host clock."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, statistics.median(times)
+
+
+def _tn_counted(fn):
+    """(flops, width) of the contractions ``fn`` runs: the sum of each
+    call's path cost and the largest width, from the expression of every
+    array_contract call, without changing what runs."""
+    from quimb_torch.ops import contraction as C
+    from quimb_torch.tensor import core as tcore
+
+    flops, width = [0.0], [0.0]
+    plain = tcore.array_contract
+
+    def counted(arrays, inputs, output=None, **kwargs):
+        out = C.find_output_inds(inputs) if output is None else output
+        expr = C.array_contract_expression(
+            inputs, out, shapes=[a.shape for a in arrays],
+            optimize=kwargs.get("optimize"))
+        flops[0] += expr.flops
+        width[0] = max(width[0], expr.width)
+        return plain(arrays, inputs, output, **kwargs)
+
+    tcore.array_contract = counted
+    try:
+        fn()
+    finally:
+        tcore.array_contract = plain
+    return flops[0], width[0]
+
+
+def _tn_report(what, info, search_s, secs):
+    print(f"{what}: path search {search_s:.3f} s, flops {info.flops:.4e}, "
+          f"width {info.width:.2f}, {secs:.4f} s warm (median of 3), "
+          f"{info.flops / secs / 1e12:.3f} TFLOP/s", flush=True)
+
+
+def run_tn_layer(dmrg):
+    """The tensor-network object layer on the float64 DMRG2 state: the
+    norm and energy networks of the L=128, chi=256 state contracted by
+    three routes, and a canonisation and compression at bond 64."""
+    from quimb_torch.ops.native import native_available
+
+    t_phase = time.perf_counter()
+    As = list(dmrg.state)
+    Ws = quimb_torch.MPO_ham_heis(L, dtype=torch.float64, device="cuda")
+    _reset_launches()
+    before = dict(ck.LAUNCHES)
+    ket, ham, bra = _tn_networks(As, Ws)
+    for name, tn in (("ket", ket), ("operator", ham), ("bra", bra)):
+        bad = [t for t in tn if not (t.data.is_cuda
+                                     and t.dtype == torch.float64)]
+        if bad:
+            raise AssertionError(f"{name} tensor {bad[0]} is not float64 "
+                                 f"on the card")
+    print(f"networks: ket {ket.num_tensors} tensors, operator "
+          f"{ham.num_tensors}, bra {bra.num_tensors}; all float64 on the "
+          f"card", flush=True)
+    if not native_available():
+        raise AssertionError("the native path finder did not build/load")
+    print("native path finder: loaded", flush=True)
+
+    t0 = time.perf_counter()
+    e_host, n_host = host_f64_sweep(As, Ws)
+    print(f"host float64 sweep: <psi|H|psi> {e_host:.12f}, <psi|psi> "
+          f"{n_host:.15f} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # <psi|psi> by quimb_tpu's default path, "auto" (native random-greedy):
+    # the bra with its physical indices back on the ket's
+    norm_tn = bra.reindex({f"q{i}": f"p{i}" for i in range(L)}) & ket
+    info, search = _tn_search(norm_tn, "auto")
+    n_auto, secs = _tn_timed(lambda: norm_tn.contract(all, optimize="auto"))
+    n_auto = _tn_scalar(n_auto)
+    _tn_report("<psi|psi> by 'auto'", info, search, secs)
+    rel = abs(n_auto - n_host) / abs(n_host)
+    print(f"<psi|psi> {n_auto:.15f}, relative to the host sweep "
+          f"{rel:.3e} (bound {TN_NORM_TOL:.0e})", flush=True)
+    if not rel < TN_NORM_TOL:
+        raise AssertionError("<psi|psi> misses the host sweep")
+
+    # <psi|H|psi> / <psi|psi> by the site-by-site sweep
+    energy_tn = bra & ham & ket
+    sites = [f"I{i}" for i in range(L)]
+    e_cum, secs = _tn_timed(lambda: energy_tn.contract_cumulative(sites))
+    e_cum = _tn_scalar(e_cum)
+    print(f"<psi|H|psi> by contract_cumulative over I0..I{L - 1}: "
+          f"{secs:.4f} s warm (median of 3)", flush=True)
+    busy, top, wall_us, count = _busy_share(
+        lambda: energy_tn.contract_cumulative(sites))
+    print(f"contract_cumulative busy share "
+          f"{'not measured' if busy is None else f'{busy:.3f}'} of "
+          f"{wall_us / 1e3:.1f} ms, {count} device activities; top "
+          f"{[(n[:40], round(us, 1)) for n, us in top]}", flush=True)
+    flops, width = _tn_counted(lambda: energy_tn.contract_cumulative(sites))
+    print(f"  {L} steps: flops {flops:.4e}, width {width:.2f}, "
+          f"{flops / secs / 1e12:.3f} TFLOP/s", flush=True)
+    _tn_check_energy("contract_cumulative", e_cum / n_auto, e_host / n_host)
+
+    # "auto" on the energy network: searched, not run
+    info, search = _tn_search(energy_tn, "auto", output_inds=())
+    print(f"<psi|H|psi> by 'auto' (searched, not run): path search "
+          f"{search:.3f} s, flops {info.flops:.4e}, width "
+          f"{info.width:.2f}", flush=True)
+
+    # the same ratio by quimb_tpu's greedy path, the heaviest contraction
+    # the port runs
+    info, search = _tn_search(energy_tn, "greedy", output_inds=())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    e_greedy, secs = _tn_timed(lambda: energy_tn.contract(
+        all, output_inds=(), optimize="greedy"))
+    e_greedy = _tn_scalar(e_greedy)
+    peak = torch.cuda.max_memory_allocated()
+    _tn_report("<psi|H|psi> by 'greedy'", info, search, secs)
+    print(f"  its largest intermediate {2 ** info.width * 8 / 1e9:.2f} GB "
+          f"(float64); torch.cuda.max_memory_allocated {peak / 1e9:.2f} GB "
+          f"(allocated before {m0 / 1e9:.2f} GB)", flush=True)
+    _tn_check_energy("greedy", e_greedy / n_auto, e_host / n_host)
+    torch.cuda.empty_cache()
+
+    _tn_compress_check(ket)
+    n = {k: ck.LAUNCHES[k] - before[k] for k in before}
+    if sum(n.values()):
+        raise AssertionError(f"the tensor-network layer launched the "
+                             f"sandwich kernels {n}")
+    print(f"tensor-network phase: {time.perf_counter() - t_phase:.1f} s, "
+          f"sandwich launches {n}", flush=True)
+
+
+def _tn_check_energy(what, ratio, ref):
+    rel = abs(ratio - ref) / abs(ref)
+    rel_ref = abs(ratio - E_REF) / abs(E_REF)
+    print(f"<psi|H|psi>/<psi|psi> by {what}: {ratio:.12f}, relative to the "
+          f"host sweep {rel:.3e} (bound {TN_ENERGY_TOL:.0e}), to E_REF "
+          f"{rel_ref:.3e} (bound {E_REL_TOL[torch.float64]:.0e})",
+          flush=True)
+    if not (rel < TN_ENERGY_TOL and rel_ref < E_REL_TOL[torch.float64]):
+        raise AssertionError(f"the energy by {what} misses its bounds")
+
+
+def _tn_compress_check(ket):
+    """canonize_between and compress_between at bond 64 on a copy of the
+    ket, through the port's array_split, against a direct rank-128
+    truncation by torch.linalg.svd; and tensor_split of the fused pair."""
+    a, b = f"I{TN_BOND - 1}", f"I{TN_BOND}"
+    kc = ket.copy()
+    norm0 = float(kc.make_norm().contract(all)) ** 0.5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kc.canonize_between(a, b)
+    torch.cuda.synchronize()
+    t_canon = time.perf_counter() - t0
+    norm1 = float(kc.make_norm().contract(all)) ** 0.5
+    pair = quimb_torch.tensor_contract(kc[a], kc[b])
+    left = (f"k{TN_BOND - 1}", f"p{TN_BOND - 1}")
+    right = (f"p{TN_BOND}", f"k{TN_BOND + 1}")
+    theta = pair.transpose(*left, *right).data
+    theta = theta.reshape(theta.shape[0] * theta.shape[1], -1)
+    U, s, VH = torch.linalg.svd(theta, full_matrices=False)
+    k = TN_MAX_BOND
+    ref = (U[:, :k] * s[:k]) @ VH[:k]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kc.compress_between(a, b, max_bond=k, cutoff=0.0)
+    torch.cuda.synchronize()
+    t_comp = time.perf_counter() - t0
+    bond = kc.bond_size(a, b)
+    got = quimb_torch.tensor_contract(kc[a], kc[b]).transpose(
+        *left, *right).data.reshape(ref.shape)
+    err = float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
+    tl, tr = pair.split(left, max_bond=k, cutoff=0.0, get="tensors")
+    got_split = quimb_torch.tensor_contract(tl, tr).transpose(
+        *left, *right).data.reshape(ref.shape)
+    err_split = float(torch.linalg.norm(got_split - ref)
+                      / torch.linalg.norm(ref))
+    canon = abs(norm1 - norm0) / norm0
+    print(f"bond {TN_BOND} (was {ket.bond_size(a, b)}): canonize_between "
+          f"{t_canon * 1e3:.2f} ms, norm {norm0:.15f} -> {norm1:.15f} "
+          f"(relative {canon:.3e}, bound {TN_CANON_TOL:.0e}); "
+          f"compress_between to {bond} in {t_comp * 1e3:.2f} ms, product "
+          f"against the rank-{k} SVD truncation {err:.3e}, tensor_split's "
+          f"{err_split:.3e} (bound {TN_SPLIT_TOL:.0e}); s[{k - 1}] "
+          f"{float(s[k - 1]):.3e}, s[{k}] {float(s[k]):.3e}", flush=True)
+    if bond != k or tl.shape[-1] != k:
+        raise AssertionError(f"the compressed bond is {bond}, not {k}")
+    if not (err < TN_SPLIT_TOL and err_split < TN_SPLIT_TOL):
+        raise AssertionError("the compressed pair misses the truncation")
+    if not canon < TN_CANON_TOL:
+        raise AssertionError("canonize_between changed the ket's norm")
 
 
 # -- phase 10: the TEBD quench ------------------------------------------------
@@ -1044,6 +1301,7 @@ def main():
     dmrg, launches[torch.float64] = run_main_path(torch.float64)
     check_splits(bond_breakdown(dmrg))
     launches[torch.float64] += run_dmrg1_path(dmrg)
+    run_tn_layer(dmrg)
     del dmrg
     for dtype in TEBD_REAL:
         run_tebd_path(dtype)

@@ -3,9 +3,13 @@
 The two packages share the uniform array layout of the DMRG engine —
 MPO tensors ``(wl, wr, u, d)`` and MPS tensors ``(l, p, r)`` — so a
 state or operator crosses as numpy arrays, with no reshaping; a sparse
-Hamiltonian of the exact layer crosses as its scipy matrix. Tensors land
-on ``device``, the GPU unless the caller names another.
+Hamiltonian of the exact layer crosses as its scipy matrix; a tensor or
+a tensor network crosses with its arrays read as numpy arrays and its
+``inds`` and ``tags`` kept. Tensors land on ``device``, the GPU unless the
+caller names another.
 """
+
+import numpy as np
 
 from .core import LocalTermsHam, SparseHam
 from .ops.backend import resolve_device, to_device, to_host
@@ -40,6 +44,28 @@ def from_tpu_operator(H, device=None):
         dims, terms = lt
         return LocalTermsHam(dims, terms, device=device)
     return SparseHam(H, device=device)
+
+
+def from_tpu_tensor(t, device=None):
+    """A quimb_tpu ``Tensor`` (or any object with ``data``, ``inds``,
+    ``tags`` and ``left_inds``) -> the port's :class:`Tensor` with the same
+    indices and tags, its data read through ``np.asarray``."""
+    from .tensor.core import Tensor
+
+    data = to_device(np.asarray(t.data), device=resolve_device(device))
+    return Tensor(data, inds=tuple(t.inds), tags=tuple(t.tags),
+                  left_inds=getattr(t, "left_inds", None))
+
+
+def from_tpu_tensor_network(tn, device=None):
+    """A quimb_tpu ``TensorNetwork`` -> the port's :class:`TensorNetwork`
+    of the same tensors, in the same order, with its ``exponent``."""
+    from .tensor.core import TensorNetwork
+
+    new = TensorNetwork([from_tpu_tensor(t, device=device)
+                         for t in tn.tensor_map.values()], virtual=True)
+    new.exponent = getattr(tn, "exponent", 0.0)
+    return new
 
 
 def to_numpy(tensors):

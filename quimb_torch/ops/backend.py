@@ -25,6 +25,18 @@ def complex_dtype(dtype):
             else torch.complex128)
 
 
+def to_torch_dtype(dtype):
+    """A torch dtype from a torch dtype, a numpy dtype or a name such as
+    ``"complex128"`` or ``"torch.float32"``."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = str(dtype).replace("torch.", "")
+    if name not in ("float16", "bfloat16", "float32", "float64",
+                    "complex64", "complex128", "int32", "int64", "bool"):
+        name = np.dtype(dtype).name
+    return getattr(torch, name)
+
+
 def numpy_dtype(dtype):
     """The numpy dtype of the torch dtype ``dtype``."""
     return torch.empty(0, dtype=dtype).numpy().dtype

@@ -1,13 +1,23 @@
-"""Truncated splits and sign-fixed QR / LQ, the splits of the DMRG engines.
+"""Truncated splits and sign-fixed QR / LQ: the splits of the DMRG and
+TEBD engines, and ``array_split`` with its registered drivers, the split
+engine of the tensor-network layer.
 
-Port of the matching parts of ``quimb_tpu/ops/decomp.py``: the masked
-truncated SVD, its gram-matrix ``eigh`` variant (``svd:eig``), the
-randomized-subspace variants (``svd:sub``, ``svd:sub0``) and QR / LQ with
-fixed signs. The TPU's square-padding shims, its re-orthogonalising QR
-and its triangular-matmul cumsum are not needed: cuSOLVER and LAPACK take
-rectangular factorizations as they are.
+Port of ``quimb_tpu/ops/decomp.py``: the masked truncated SVD, its
+gram-matrix ``eigh`` variant (``svd:eig``), the randomized-subspace
+variants (``svd:sub``, ``svd:sub0``), QR / LQ with fixed signs,
+``array_split`` with its method, absorb and cutoff-mode maps and its
+dynamic-rank trim (one device-to-host read of the kept rank per split),
+the drivers (``svd``, ``svd:eig``, ``svd:rand``, ``qr``, ``qr:cholesky``,
+``eigh``, ``cholesky``, ``polar_right`` / ``polar_left``, ``lu``),
+``isometrize`` and the oblique projectors of the bond compressions. The
+TPU's square-padding shims, its re-orthogonalising QR and its
+triangular-matmul cumsum are not needed: cuSOLVER and LAPACK take
+rectangular factorizations as they are. A numpy operand is split on the
+host, by LAPACK, only under ``contract_backend("numpy")``, as in
+quimb_tpu.
 """
 
+import numpy as np
 import torch
 
 # -- mode maps (the reference's numeric codes) -------------------------------
@@ -36,11 +46,22 @@ _ABSORB_ALIASES = {
 }
 
 
+# power used when ``renorm=True`` for each cutoff mode
+RENORM_LOOKUP = {3: 2, 4: 2, 5: 1, 6: 1}
+
+
 def parse_absorb(absorb):
     try:
         return _ABSORB_ALIASES[absorb]
     except KeyError:
         raise ValueError(f"Invalid absorb mode: {absorb!r}")
+
+
+def parse_cutoff_mode(cutoff_mode):
+    try:
+        return CUTOFF_MODE_MAP[cutoff_mode]
+    except KeyError:
+        raise ValueError(f"Invalid cutoff mode: {cutoff_mode!r}")
 
 
 # -- small helpers -----------------------------------------------------------
@@ -147,8 +168,17 @@ def safe_eigh(x):
 # -- QR / LQ -----------------------------------------------------------------
 
 
+def _np_sgn(x):
+    x0 = np.where(x == 0, 1.0, x)
+    return np.where(x == 0, np.ones_like(x), x0 / np.abs(x0))
+
+
 def qr_stabilized(x):
     """QR with R's diagonal made real-positive. Returns ``(Q, None, R)``."""
+    if isinstance(x, np.ndarray):
+        Q, R = np.linalg.qr(x)
+        sg = _np_sgn(np.diagonal(R, axis1=-2, axis2=-1))
+        return Q * sg[..., None, :], None, R * np.conj(sg)[..., :, None]
     Q, R = torch.linalg.qr(x)
     s = sgn(torch.diagonal(R, dim1=-2, dim2=-1))
     return Q * s[..., None, :], None, R * torch.conj(s)[..., :, None]
@@ -157,6 +187,12 @@ def qr_stabilized(x):
 def lq_stabilized(x):
     """LQ decomposition ``x = L @ Q`` with ``Q`` row-isometric and ``L``'s
     diagonal real-positive. Returns ``(L, None, Q)``."""
+    if isinstance(x, np.ndarray):
+        Qt, Rt = np.linalg.qr(np.swapaxes(x, -2, -1))
+        sg = _np_sgn(np.diagonal(Rt, axis1=-2, axis2=-1))
+        Qt = Qt * sg[..., None, :]
+        Rt = Rt * np.conj(sg)[..., :, None]
+        return np.swapaxes(Rt, -2, -1), None, np.swapaxes(Qt, -2, -1)
     Qt, Rt = torch.linalg.qr(torch.swapaxes(x, -2, -1))
     s = sgn(torch.diagonal(Rt, dim1=-2, dim2=-1))
     Qt = Qt * s[..., None, :]
@@ -376,3 +412,520 @@ def split_truncated_subspace(x, max_bond, absorb="right", iters=2,
         U, VH = V, dag(V) @ x
     return U, None, VH, torch.full((), k, dtype=torch.int64,
                                    device=x.device)
+
+
+# -- array_split: the dynamic-rank split engine ------------------------------
+
+
+def rddiv(x, d):
+    return x / d[..., None, :].to(x.dtype)
+
+
+def lddiv(d, x):
+    return x / d[..., :, None].to(x.dtype)
+
+
+def _nchi(sabs, cutoff, cutoff_mode):
+    """Number of singular values to keep under ``cutoff``: the
+    cumulative-spectrum rule of quimb_tpu's ``_nchi_kernel``. ``sabs``
+    may be batched; the max over the batch is taken. Numpy or torch."""
+    xp = np if isinstance(sabs, np.ndarray) else torch
+    if cutoff_mode == 1:  # abs
+        n_chi = (sabs > cutoff).sum(-1)
+    elif cutoff_mode == 2:  # rel
+        n_chi = (sabs > cutoff * sabs[..., 0:1]).sum(-1)
+    else:
+        sp = sabs * sabs if cutoff_mode in (3, 4) else sabs
+        csp = xp.cumsum(sp, -1)
+        tot = csp[..., -1:]
+        if cutoff_mode in (4, 6):
+            above = csp < tot * (1 - cutoff)
+        else:
+            above = csp < tot - cutoff
+        n_chi = above.sum(-1) + 1
+    return n_chi.max()
+
+
+def _resolve_nchi(sabs, cutoff, cutoff_mode, max_bond, renorm):
+    """The number of singular values to keep, as a host int: one
+    device-to-host read when a cutoff or a renormalisation asks for it."""
+    d = sabs.shape[-1]
+    if (cutoff is not None and cutoff > 0.0) or (renorm and renorm > 0):
+        n_chi = max(int(_nchi(sabs, cutoff if cutoff else 0.0,
+                              cutoff_mode)), 1)
+        if max_bond and max_bond > 0:
+            n_chi = min(n_chi, max_bond)
+    elif max_bond and max_bond > 0:
+        n_chi = min(max_bond, d)
+    else:
+        n_chi = d
+    return n_chi
+
+
+def _trim_and_renorm(U, s, VH, cutoff=-1.0, cutoff_mode=4, max_bond=-1,
+                     absorb="both", renorm=0, use_abs=False, info=None):
+    """Truncate, renormalise and absorb an SVD-like result (numpy or
+    torch). The kept rank is a host int, so the factors are sliced to
+    it."""
+    cutoff_mode = parse_cutoff_mode(cutoff_mode)
+    absorb = parse_absorb(absorb)
+    xp = np if isinstance(s, np.ndarray) else torch
+    sabs = xp.abs(s) if use_abs else s
+    d = s.shape[-1]
+    n_chi = _resolve_nchi(sabs, cutoff, cutoff_mode, max_bond, renorm)
+    if n_chi < d:
+        if info is not None and "error" in info:
+            info["error"] = float(
+                (sabs[..., n_chi:] ** 2).sum(-1).max() ** 0.5)
+        if renorm:
+            pw = (RENORM_LOOKUP.get(cutoff_mode, 2) if renorm is True
+                  else int(renorm))
+            csp = xp.cumsum(sabs**pw, -1)
+            f = (csp[..., -1] / csp[..., n_chi - 1]) ** (1.0 / pw)
+            s = s[..., :n_chi] * f[..., None]
+        else:
+            s = s[..., :n_chi]
+        U = U[..., :, :n_chi]
+        VH = VH[..., :n_chi, :]
+    elif info is not None and "error" in info:
+        info["error"] = 0.0
+    return _do_absorb(U, s, VH, absorb)
+
+
+def _do_absorb(U, s, VH, absorb):
+    """Absorb singular values per mode; unrequested factors are ``None``
+    (numpy or torch)."""
+    if absorb is None:
+        return U, s, VH
+    sqrt = np.sqrt if isinstance(s, np.ndarray) else torch.sqrt
+
+    def r(x, d):
+        return x * d[..., None, :].astype(x.dtype) if isinstance(
+            x, np.ndarray) else rdmul(x, d)
+
+    def l(d, x):
+        return x * d[..., :, None].astype(x.dtype) if isinstance(
+            x, np.ndarray) else ldmul(d, x)
+
+    if absorb == "both":
+        sq = sqrt(s)
+        return r(U, sq), None, l(sq, VH)
+    if absorb == "right":
+        return U, None, l(s, VH)
+    if absorb == "left":
+        return r(U, s), None, VH
+    if absorb == "rfactor":
+        return None, None, l(s, VH)
+    if absorb == "lfactor":
+        return r(U, s), None, None
+    if absorb == "lorthog":
+        return U, None, None
+    if absorb == "rorthog":
+        return None, None, VH
+    if absorb == "lsqrt":
+        return r(U, sqrt(s)), None, None
+    if absorb == "rsqrt":
+        return None, None, l(sqrt(s), VH)
+    if absorb == "s":
+        return None, s, None
+    raise ValueError(f"Invalid absorb mode: {absorb}")
+
+
+_SPLIT_DRIVERS = {}
+_FULL_SPLIT_OPTS = frozenset(
+    ("cutoff", "cutoff_mode", "max_bond", "absorb", "renorm", "info")
+)
+_DRIVER_OPTS = {}
+
+
+def register_split_driver(name, accepts=_FULL_SPLIT_OPTS):
+    """Register a function as a split driver for ``array_split``."""
+
+    def _register(fn):
+        _SPLIT_DRIVERS[name] = fn
+        _DRIVER_OPTS[name] = frozenset(accepts)
+        return fn
+
+    return _register
+
+
+def array_split(x, method="svd", absorb="auto", max_bond=None, cutoff=1e-10,
+                cutoff_mode="rsum2", renorm=None, info=None, **kwargs):
+    """Split a 2D (batch of) array(s) into left/right factors, dispatching
+    on ``method``. Returns ``(left, s, right)`` with ``None`` placeholders
+    depending on ``absorb``. A tensor is split on its own device; a numpy
+    array on the host under ``contract_backend("numpy")`` (methods
+    ``svd`` and ``qr``), else on the default device."""
+    if method == "auto":
+        truncating = (max_bond is not None and max_bond > 0) or (
+            cutoff is not None and cutoff > 0
+        )
+        if absorb in ("auto", "both", None) or truncating:
+            method = "svd"
+        elif absorb == "right":
+            method = "qr"
+        elif absorb == "left":
+            method = "lq"
+        else:
+            method = "svd"
+
+    if method == "lq":
+        method = "qr"
+        if absorb in ("auto", None):
+            absorb = "left"
+
+    if absorb == "auto":
+        absorb = {"qr": "right", "qr:cholesky": "right",
+                  "polar_right": "right", "polar_left": "left",
+                  "cholesky": "both", "lu": "both"}.get(method, "both")
+
+    fn = _SPLIT_DRIVERS[method]
+    accepts = _DRIVER_OPTS[method]
+
+    opts = dict(kwargs)
+    if "absorb" in accepts:
+        opts["absorb"] = parse_absorb(absorb)
+    if "max_bond" in accepts:
+        opts["max_bond"] = -1 if max_bond is None else int(max_bond)
+    if "cutoff" in accepts:
+        opts["cutoff"] = -1.0 if cutoff is None else float(cutoff)
+    if "cutoff_mode" in accepts:
+        opts["cutoff_mode"] = parse_cutoff_mode(cutoff_mode)
+    if "renorm" in accepts:
+        if renorm is True:
+            opts["renorm"] = RENORM_LOOKUP.get(
+                parse_cutoff_mode(cutoff_mode), 0)
+        else:
+            opts["renorm"] = 0 if renorm is None else int(renorm)
+    if "info" in accepts:
+        opts["info"] = info
+
+    if isinstance(x, np.ndarray) and x.dtype != object and \
+            method in ("svd", "qr"):
+        from .contraction import get_contract_backend
+
+        if get_contract_backend() == "numpy":
+            return _array_split_host(x, method, **opts)
+
+    if not isinstance(x, torch.Tensor):
+        from .backend import resolve_device, to_device
+
+        x = to_device(x, device=resolve_device(None))
+    # materialise torch's lazy conjugates (``dag``'s), so that a factor is
+    # a plain tensor
+    return tuple(None if f is None else f.resolve_conj()
+                 for f in fn(x, **opts))
+
+
+def _array_split_host(x, method, absorb="both", max_bond=-1, cutoff=-1.0,
+                      cutoff_mode=4, renorm=0, info=None):
+    """The ``svd`` and ``qr`` drivers in numpy, for host tensors under
+    ``contract_backend("numpy")``."""
+    if method == "qr":
+        if absorb == "left":
+            return lq_stabilized(x)
+        return qr_stabilized(x)
+    U, s, VH = np.linalg.svd(x, full_matrices=False)
+    return _trim_and_renorm(U, s, VH, cutoff=cutoff, cutoff_mode=cutoff_mode,
+                            max_bond=max_bond, absorb=absorb, renorm=renorm,
+                            info=info)
+
+
+@register_split_driver("svd")
+def svd_truncated(x, cutoff=-1.0, cutoff_mode=4, max_bond=-1, absorb="both",
+                  renorm=0, info=None):
+    """Truncated SVD (on CUDA by the driver of :func:`_svd_driver`)."""
+    if isinstance(x, np.ndarray):
+        U, s, VH = np.linalg.svd(x, full_matrices=False)
+    else:
+        U, s, VH = safe_svd(x)
+    return _trim_and_renorm(
+        U, s, VH, cutoff=cutoff, cutoff_mode=cutoff_mode, max_bond=max_bond,
+        absorb=absorb, renorm=renorm, info=info,
+    )
+
+
+def _svd_via_eig(x, gram_side):
+    """SVD via a hermitian eigendecomposition of the gram matrix on
+    ``gram_side``, singular values descending."""
+    if gram_side == "left":
+        s, s_safe, U = _gram_eigh(x @ dag(x))
+        return U, s, lddiv(s_safe, dag(U) @ x)
+    s, s_safe, V = _gram_eigh(dag(x) @ x)
+    return rddiv(x @ V, s_safe), s, dag(V)
+
+
+@register_split_driver("svd:eig")
+def svd_via_eig_truncated(x, cutoff=-1.0, cutoff_mode=4, max_bond=-1,
+                          absorb="both", renorm=0, info=None):
+    m, n = x.shape[-2:]
+    U, s, VH = _svd_via_eig(x, "left" if m <= n else "right")
+    return _trim_and_renorm(
+        U, s, VH, cutoff=cutoff, cutoff_mode=cutoff_mode, max_bond=max_bond,
+        absorb=absorb, renorm=renorm, info=info,
+    )
+
+
+def _rand_range_finder(x, k, q, seed=None):
+    """Orthonormal Q (m, k) approximately spanning the top-k column space
+    of ``x``, with ``q`` power iterations; the sketch is drawn from a
+    generator of ``x``'s device (quimb_tpu draws from JAX's PRNG)."""
+    from ..gen.rand import randn
+
+    G = randn((*x.shape[:-2], x.shape[-1], k), dtype=x.real.dtype,
+              seed=seed, device=x.device).to(x.dtype)
+    Q, _ = safe_qr(x @ G)
+    for _ in range(q):
+        Z, _ = safe_qr(dag(x) @ Q)
+        Q, _ = safe_qr(x @ Z)
+    return Q
+
+
+@register_split_driver("svd:rand", accepts=_FULL_SPLIT_OPTS | {"q", "p"})
+def svd_rand_truncated(x, cutoff=-1.0, cutoff_mode=4, max_bond=-1,
+                       absorb="both", renorm=0, info=None, q=2, p=10):
+    """Randomized truncated SVD; only beneficial with ``max_bond``."""
+    m, n = x.shape[-2:]
+    if max_bond is None or max_bond <= 0:
+        return svd_truncated(x, cutoff, cutoff_mode, -1, absorb, renorm,
+                             info)
+    k = min(max_bond + p, m, n)
+    Q = _rand_range_finder(x, k, q)
+    Ub, s, VH = safe_svd(dag(Q) @ x)
+    return _trim_and_renorm(
+        Q @ Ub, s, VH, cutoff=cutoff, cutoff_mode=cutoff_mode,
+        max_bond=max_bond, absorb=absorb, renorm=renorm, info=info,
+    )
+
+
+# the reference's iterative sparse drivers: dense arrays here
+register_split_driver("svds")(svd_rand_truncated)
+register_split_driver("isvd", accepts=_FULL_SPLIT_OPTS | {"q", "p"})(
+    svd_rand_truncated)
+register_split_driver("rsvd", accepts=_FULL_SPLIT_OPTS | {"q", "p"})(
+    svd_rand_truncated)
+
+
+@register_split_driver("qr", accepts=("absorb",))
+def qr_driver(x, absorb="right"):
+    if absorb == "left":
+        return lq_stabilized(x)
+    return qr_stabilized(x)
+
+
+@register_split_driver("qr:cholesky", accepts=())
+def qr_cholesky(x):
+    """Cholesky-QR: Q = x R^-1 with R = chol(x†x)†, the gram matrix
+    shifted by eps·tr for rank safety."""
+    G = dag(x) @ x
+    eps = torch.finfo(x.real.dtype).eps
+    tr = torch.diagonal(G, dim1=-2, dim2=-1).sum(-1).real
+    G = G + (eps * tr)[..., None, None] * torch.eye(
+        G.shape[-1], dtype=G.dtype, device=G.device)
+    L = torch.linalg.cholesky(G)
+    Q = torch.linalg.solve_triangular(L, dag(x), upper=False)
+    return dag(Q), None, dag(L)
+
+
+@register_split_driver("eigh", accepts=_FULL_SPLIT_OPTS | {"positive",
+                                                            "shift"})
+def eigh_truncated(x, cutoff=-1.0, cutoff_mode=4, max_bond=-1, absorb="both",
+                   renorm=0, info=None, positive=0, shift=False):
+    """SVD-like split via a hermitian eigendecomposition; ``x`` must be
+    hermitian. Without ``positive`` the values are ordered by magnitude."""
+    if shift:
+        rel = torch.finfo(x.real.dtype).eps if shift is True else float(shift)
+        tr = torch.diagonal(x, dim1=-2, dim2=-1).sum(-1)
+        x = x + (rel * tr)[..., None, None] * torch.eye(
+            x.shape[-1], dtype=x.dtype, device=x.device)
+    s, U = torch.linalg.eigh(x)
+    if not positive:
+        idx = torch.argsort(-torch.abs(s), dim=-1, stable=True)
+        s = torch.take_along_dim(s, idx, dim=-1)
+        U = torch.take_along_dim(U, idx[..., None, :], dim=-1)
+    else:
+        s, U = torch.flip(s, (-1,)), torch.flip(U, (-1,))
+    if positive and absorb in ("both", "lsqrt", "rsqrt"):
+        s = torch.clamp(s, min=0.0)
+    return _trim_and_renorm(
+        U, s, dag(U), cutoff=cutoff, cutoff_mode=cutoff_mode,
+        max_bond=max_bond, absorb=absorb, renorm=renorm,
+        use_abs=not positive, info=info,
+    )
+
+
+register_split_driver("eigsh", accepts=_FULL_SPLIT_OPTS | {"positive",
+                                                            "shift"})(
+    eigh_truncated)
+
+
+@register_split_driver("cholesky", accepts=())
+def cholesky_split(x):
+    """x = L @ L†, for positive-definite hermitian x."""
+    L = torch.linalg.cholesky(x)
+    return L, None, dag(L)
+
+
+@register_split_driver("polar_right", accepts=())
+def polar_right(x):
+    """Polar decomposition x = W @ P (W isometric, P positive hermitian)."""
+    U, s, VH = safe_svd(x)
+    return U @ VH, None, dag(VH) @ ldmul(s, VH)
+
+
+@register_split_driver("polar_left", accepts=())
+def polar_left(x):
+    """Polar decomposition x = P @ W."""
+    U, s, VH = safe_svd(x)
+    return rdmul(U, s) @ dag(U), None, U @ VH
+
+
+@register_split_driver("lu", accepts=("cutoff", "cutoff_mode"))
+def lu_truncated(x, cutoff=-1.0, cutoff_mode=4):
+    """LU split x = (P L) U, optionally dropping jointly small columns of
+    P L and rows of U (only the abs and rel cutoffs). The kept columns
+    are read to the host."""
+    P, L, U = torch.linalg.lu(x)
+    PL = P @ L
+    if cutoff > 0.0:
+        ss = torch.linalg.norm(PL, dim=-2) * torch.linalg.norm(U, dim=-1)
+        if cutoff_mode == 1:
+            keep = ss > cutoff
+        elif cutoff_mode == 2:
+            keep = ss > cutoff * torch.max(ss)
+        else:
+            raise ValueError(
+                "lu_truncated only supports cutoff modes 'abs' and 'rel'"
+            )
+        (idx,) = np.nonzero(keep.cpu().numpy())
+        idx = torch.as_tensor(idx, device=x.device)
+        PL = PL[..., :, idx]
+        U = U[..., idx, :]
+    return PL, None, U
+
+
+# -- isometrization ------------------------------------------------------------
+
+
+def _pad_square(x):
+    m, n = x.shape[-2:]
+    d = max(m, n)
+    return torch.nn.functional.pad(x, (0, d - n, 0, d - m)), d
+
+
+def isometrize_qr(x):
+    """Isometrize via QR with the positive-diagonal convention."""
+    Q, R = safe_qr(x)
+    return Q * sgn(torch.diagonal(R, dim1=-2, dim2=-1))[..., None, :]
+
+
+def isometrize_svd(x):
+    U, _, VH = safe_svd(x)
+    return U @ VH
+
+
+def isometrize_exp(x):
+    """U = expm(X - X†) with rectangular x zero-completed first."""
+    m, n = x.shape[-2:]
+    xp, _ = _pad_square(x)
+    return torch.linalg.matrix_exp(xp - dag(xp))[..., :m, :n]
+
+
+def isometrize_cayley(x):
+    """Cayley transform of (X - X†)/2, zero-completed to square."""
+    m, n = x.shape[-2:]
+    xp, d = _pad_square(x)
+    A = (xp - dag(xp)) / 2.0
+    Id = torch.eye(d, dtype=x.dtype, device=x.device)
+    return torch.linalg.solve(Id - A, Id + A)[..., :m, :n]
+
+
+def isometrize_householder(X):
+    """The product of the Householder reflectors held in the strictly
+    lower triangle of X (LAPACK's ``orgqr``, as in quimb_tpu)."""
+    X = torch.tril(X, -1)
+    tau = 2.0 / (1.0 + torch.sum(torch.conj(X) * X, dim=-2))
+    return torch.linalg.householder_product(X, tau.to(X.dtype))
+
+
+_ISOMETRIZE_METHODS = {
+    "qr": isometrize_qr,
+    "svd": isometrize_svd,
+    "mgs": isometrize_qr,
+    "exp": isometrize_exp,
+    "cayley": isometrize_cayley,
+    "householder": isometrize_householder,
+}
+
+
+def isometrize(x, method="qr"):
+    """Project ``x`` into isometric form using ``method``."""
+    return _ISOMETRIZE_METHODS[method](x)
+
+
+# -- reduced factors and oblique projectors ----------------------------------
+
+
+def squared_op_to_reduced_factor(x2, right=True):
+    """Given the square of an operator ``x2 = x† x`` (or ``x x†``), a
+    reduced factor ``R`` with ``R† R = x2`` (right) or ``R R† = x2``
+    (left)."""
+    s2, W = torch.linalg.eigh(x2)
+    s = torch.sqrt(torch.clamp(s2, min=0.0))
+    return ldmul(s, dag(W)) if right else rdmul(W, s)
+
+
+def compute_oblique_projectors(Rl, Rr, max_bond, cutoff, absorb="both",
+                               cutoff_mode=4, **split_opts):
+    """Oblique projectors ``Pl``, ``Pr`` for a bond with left and right
+    reduced factors ``Rl``, ``Rr``: inserting ``Pl @ Pr`` compresses the
+    bond to ``max_bond``."""
+    max_bond = -1 if max_bond is None else max_bond
+    U, s, VH = svd_truncated(
+        Rl @ Rr, cutoff=cutoff, cutoff_mode=cutoff_mode, max_bond=max_bond,
+        absorb=None, **split_opts,
+    )
+    sqs = torch.sqrt(s)
+    safe = torch.where(sqs > 0, sqs, torch.ones_like(sqs))
+    Pl = Rr @ rddiv(dag(VH), safe)
+    Pr = lddiv(safe, dag(U)) @ Rl
+    return Pl, Pr
+
+
+def similarity_compress(X, max_bond, renorm=False, method="eigh"):
+    """``(Cl, Cr)`` compressing a square bond-environment operator ``X``
+    to ``max_bond`` by a similarity transform: ``Cr @ X @ Cl`` acts on
+    the compressed bond, and ``Cl @ Cr`` is the projector to insert
+    (methods ``eigh``, ``svd``, and ``biorthog`` on the host)."""
+    if X.shape[-1] <= max_bond:
+        eye = torch.eye(X.shape[-1], dtype=X.dtype, device=X.device)
+        return eye, eye
+    if method == "eigh":
+        el, ev = torch.linalg.eigh((X + dag(X)) / 2)
+        sel = torch.argsort(-torch.abs(el), stable=True)[:max_bond]
+        Cl = ev[:, sel]
+        Cr = dag(Cl)
+    elif method == "svd":
+        U, _, _ = safe_svd(X)
+        Cl = U[:, :max_bond]
+        Cr = dag(Cl)
+    elif method == "biorthog":
+        import scipy.linalg as sla
+
+        from .backend import to_host
+
+        Xh = to_host(X)
+        el, vl, vr = sla.eig(Xh, left=True, right=True)
+        sel = np.argsort(-np.abs(el))[:max_bond]
+        Cl_ = vr[:, sel]
+        Cr_ = np.linalg.solve(vl[:, sel].conj().T @ Cl_,
+                              vl[:, sel].conj().T)
+        if not (np.iscomplexobj(Xh) or np.abs(np.imag(Cl_)).max() > 1e-12):
+            Cl_, Cr_ = np.real(Cl_), np.real(Cr_)
+        Cl = torch.as_tensor(Cl_, device=X.device)
+        Cr = torch.as_tensor(Cr_, device=X.device)
+    else:
+        raise ValueError(f"unknown similarity_compress method {method}")
+    if renorm:
+        Cl = Cl * (torch.trace(X) / torch.trace(Cr @ (X @ Cl)))
+    return Cl, Cr

@@ -438,3 +438,103 @@ def test_entry_points_default_to_the_card(cuda):
                     quimb_torch.MPS_computational_state("01" * 4),
                     quimb_torch.MPS_neel_state(8)):
         assert all(t.is_cuda for t in tensors)
+
+
+# -- the tensor-network object layer on the card --------------------------------
+
+
+def _random_network(n_tensors, seed, dtype):
+    """A random connected network of ``n_tensors`` tensors: a chain plus
+    random extra bonds of sizes 2-3, a few open indices."""
+    from quimb_torch.tensor import Tensor, TensorNetwork
+
+    rng = np.random.default_rng(seed)
+    inds = [[] for _ in range(n_tensors)]
+    edges = [(i, i + 1) for i in range(n_tensors - 1)]
+    edges += [tuple(int(x) for x in rng.choice(n_tensors, 2, replace=False))
+              for _ in range(n_tensors // 2)]
+    sizes = {}
+    for k, (a, b) in enumerate(edges):
+        inds[a].append(f"e{k}")
+        inds[b].append(f"e{k}")
+        sizes[f"e{k}"] = int(rng.integers(2, 4))
+    for k in range(4):
+        t = int(rng.integers(0, n_tensors))
+        inds[t].append(f"o{k}")
+        sizes[f"o{k}"] = 2
+    arrays = []
+    for term in inds:
+        shape = [sizes[ix] for ix in term]
+        x = rng.standard_normal(shape)
+        if dtype.is_complex:
+            x = x + 1j * rng.standard_normal(shape)
+        arrays.append(x)
+
+    def build(device):
+        return TensorNetwork([
+            Tensor(torch.as_tensor(x, dtype=dtype, device=device),
+                   inds=term, tags={f"T{i}"})
+            for i, (x, term) in enumerate(zip(arrays, inds))])
+
+    return build
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+@pytest.mark.parametrize("optimize", ["greedy", "auto"])
+def test_tn_contraction_on_card_matches_cpu(cuda, dtype, optimize):
+    """A 40-tensor network contracted on the card and on the CPU: the same
+    path (the expression cache holds it), float64 round-off, 1e-12
+    relative."""
+    build = _random_network(40, seed=3, dtype=dtype)
+    tn_gpu, tn_cpu = build(cuda), build("cpu")
+    assert all(t.data.is_cuda for t in tn_gpu)
+    out = tuple(sorted(tn_cpu.outer_inds()))
+    got = tn_gpu.contract(..., output_inds=out, optimize=optimize)
+    ref = tn_cpu.contract(..., output_inds=out, optimize=optimize)
+    assert got.data.is_cuda and got.dtype == dtype
+    rel = torch.linalg.norm(got.data.cpu() - ref.data) / torch.linalg.norm(
+        ref.data)
+    assert rel.item() <= 1e-12
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+@pytest.mark.parametrize("method", ["svd", "svd:eig", "qr", "lq",
+                                    "qr:cholesky", "polar_right",
+                                    "polar_left", "lu", "eigh", "cholesky"])
+def test_tensor_split_on_card_matches_cpu(cuda, dtype, method):
+    """``tensor_split`` of one tensor on the card and on the CPU, each
+    driver: the product of the factors (gauge-free), 1e-10 relative, and
+    every factor on the card."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((4, 6, 4, 6))
+    if dtype.is_complex:
+        x = x + 1j * rng.standard_normal(x.shape)
+    if method in ("eigh", "cholesky"):
+        m = x.reshape(24, 24)
+        x = (m @ m.conj().T + 24 * np.eye(24)).reshape(4, 6, 4, 6)
+    cpu, card = (_split_product(x, dtype, method, device)
+                 for device in ("cpu", cuda))
+    rel = torch.linalg.norm(card - cpu) / torch.linalg.norm(cpu)
+    assert rel.item() <= 1e-10
+
+
+def _split_product(x, dtype, method, device):
+    """The product of ``tensor_split``'s factors of ``x`` on ``device``,
+    read back to the CPU; every factor must lie on ``device``."""
+    from quimb_torch.tensor import Tensor, tensor_contract
+
+    t = Tensor(torch.as_tensor(x, dtype=dtype, device=device),
+               inds=("a", "b", "c", "d"))
+    parts = t.split(("a", "b"), method=method, cutoff=0.0, get="tensors")
+    assert all(p.data.device.type == torch.device(device).type
+               for p in parts)
+    return tensor_contract(*parts).transpose("a", "b", "c", "d").data.cpu()
+
+
+def test_tensor_of_numpy_lands_on_card(cuda):
+    from quimb_torch.tensor import COPY_tensor, Tensor
+
+    t = Tensor(np.ones((2, 3)), inds=("a", "b"))
+    assert t.data.is_cuda and t.dtype == torch.float64
+    assert COPY_tensor(2, ("a", "b")).data.is_cuda
+    assert Tensor(torch.ones(2), inds=("a",)).data.device.type == "cpu"

@@ -23,6 +23,31 @@ def test_import_never_imports_jax():
         "import sys, quimb_torch, quimb_torch.tensor, quimb_torch.convert\n"
         "import quimb_torch.core, quimb_torch.linalg.base_linalg\n"
         "import quimb_torch.evo, quimb_torch.gen.states\n"
+        "import quimb_torch.tensor.core, quimb_torch.ops.contraction\n"
+        "import quimb_torch.ops.paths, quimb_torch.ops.native\n"
+        "import quimb_torch.tensor.networking, quimb_torch.utils\n"
+        "import quimb_torch.tensor.array_ops, quimb_torch.gen.rand\n"
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
+    )
+    assert res.returncode == 0, res.stderr
+
+
+def test_object_layer_never_imports_jax_when_used():
+    """Building and contracting a network, its path search (native
+    library included) and a split load neither jax nor quimb_tpu."""
+    res = _run(
+        "import sys, torch\n"
+        "from quimb_torch.tensor import Tensor, TensorNetwork\n"
+        "from quimb_torch.ops import native\n"
+        "ts = [Tensor(torch.rand(2, 3, 2), inds=(f'k{i}', f'p{i}', "
+        "f'k{i + 1}'), tags=f'I{i}') for i in range(12)]\n"
+        "tn = TensorNetwork(ts)\n"
+        "tn.contract(..., optimize='auto')\n"
+        "tn.canonize_between('I0', 'I1')\n"
+        "tn.compress_between('I1', 'I2', max_bond=1, cutoff=0.0)\n"
+        "ts[3].split(('k3',), max_bond=1, cutoff=0.0)\n"
+        "native.native_available()\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
     )
