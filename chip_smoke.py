@@ -13,8 +13,8 @@ hand-written 3xTF32 sandwich kernel and every bond split by the card's
 default split (``svd:sub``, run as ``svd:sub0`` at cutoff 0), then
 ParallelDMRG from that state; DMRG2 on a float64 state, with every matvec
 in the hand-written FP64 tensor-core (DMMA) kernel, then DMRG1 from that
-state. Then the TEBD quench and the exact 20-qubit core. Its phases, each
-fatal on failure:
+state. Then the TEBD quench, the exact 20-qubit core and the 53-qubit
+circuit. Its phases, each fatal on failure:
 
 1. the device: a CUDA GPU is required; its name and power limit are
    printed;
@@ -93,15 +93,31 @@ fatal on failure:
    events) against the bound of reading x and writing H x once, the bytes
    the per-term loop moves, each term's time alone, the matvecs and
    Lanczos restarts of each call, and the busy share over one warm
-   ``groundenergy`` and one expm update.
+   ``groundenergy`` and one expm update;
+13. the 53-qubit depth-12 circuit of benchref/circuit53.py through
+   ``Circuit.from_openqasm2_str`` with no device, once in complex128
+   (quimb's dtype) and once in complex64 (the TPU bench's): ``amp0`` and
+   the four amplitudes of benchref/measure_tpu_circuit53.py, each cold
+   then warm on a synchronised host clock, the warm call split into the
+   host rewrite (``rehearse=True``) and the contraction alone on the card.
+   Gated: the circuit on the GPU; every pairwise step of an amplitude on
+   CUDA tensors; each amplitude within 1e-9 (complex128) or 1e-3
+   (complex64) relative of REFBASE's; ``sample(20, seed=42)`` in
+   complex128 equal to quimb_tpu's strings, its steps on CUDA tensors;
+   no sandwich kernel launched. Printed: each expression's flops, width
+   and steps, ``amp0`` by ``backend="numpy"``, the busy share over one
+   warm ``amp0`` and over ``sample(2)`` of a fresh circuit, and the
+   sampler's groups by route.
 
 The line before the last is the kernels' JSON summary, one entry per
 kernel with its launches on its paths (DMRG2 and ParallelDMRG for
 float32, DMRG2 and DMRG1 for float64; TEBD runs no hand-written kernel),
 its time against the plain einsum (the one library call that computes
 the same product) and its bound. The exact core runs no hand-written
-kernel: its matvec is plain PyTorch, measured in phase 11. The last line
-is ``{"ok": true, "device": {...}}``.
+kernel: its matvec is plain PyTorch, measured in phase 11; nor does the
+circuit: quimb_tpu's circuit path has no Pallas kernel, and its pairwise
+contractions run as batched ``matmul`` on the card. The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -1287,6 +1303,214 @@ def run_exact_path():
     torch.cuda.empty_cache()
 
 
+# -- phase 13: the 53-qubit circuit -------------------------------------------
+
+CIRC_N, CIRC_DEPTH, CIRC_SAMPLES, CIRC_SEED = 53, 12, 20, 42
+# relative distance of each amplitude from jcmgray/quimb's (REFBASE): the
+# port's complex128 run on a CPU reaches 3e-12 (float64 round-off over a
+# 466-tensor contraction); complex64 reaches the order of quimb_tpu's TPU
+# run (3e-5)
+CIRC_AMP_TOL = {torch.complex128: 1e-9, torch.complex64: 1e-3}
+# quimb_tpu's strings of ``Circuit.sample(20, seed=42)`` on this circuit,
+# from ``JAX_PLATFORMS=cpu python scripts/circuit53_samples.py`` on a CPU
+CIRC_REF_SAMPLES = (
+    "10111110010110010010100001001010010100111100000110101",
+    "01011101001111010110000111000110100100110011110001110",
+    "11000111110110111010010000011110000010000110010010110",
+    "10000010010000011111000101010010111111111100100111100",
+    "01010110111001101110111011100001100110011011011001000",
+    "11000010101100010010100011100000110001100101100101111",
+    "10001110010001111110011001101010010001011100101000101",
+    "11011011000100111001001011111000001111011001000000001",
+    "01111011001010101000000111100010000111000011100100000",
+    "01101010100010010010000000010111000011110010010010110",
+    "01000010100011101000110110000011100111100010101110110",
+    "10100110000000001001011011111010011100001000011110111",
+    "01011110011000000111101011110111110000011101100101111",
+    "10000000110111000101100011010110010011101101011101110",
+    "01100111011110000000000101100011100001010000111100010",
+    "01011100111100111101010011100111010001110000111100101",
+    "00101010100001100101101000010110010001100110111001111",
+    "01001101100011111010011001110001110000110111010000000",
+    "10011001000001100010001000000010111100011011011101110",
+    "01010010100010001111100001011111100100110011100011111",
+)
+
+
+def _circuit_qasm():
+    """benchref/circuit53.py's OpenQASM 2 string (numpy only, loaded by
+    its path: it is no part of the package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "circuit53", "benchref/circuit53.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.qasm_circuit(CIRC_N, CIRC_DEPTH)
+
+
+def _circuit_reference():
+    """REFBASE's amplitudes: amp0, then the four bitstrings of
+    benchref/measure_tpu_circuit53.py (from np.random.default_rng(0))."""
+    ref = json.loads(Path("benchref/REFBASE.json").read_text())["circuit53"]
+    amps = {"0" * CIRC_N: complex(*ref["amp0"])}
+    rng = np.random.default_rng(0)
+    for _ in range(4):
+        b = "".join(rng.choice(["0", "1"], size=CIRC_N))
+        amps[b] = complex(*ref["amps"][b])
+    return amps
+
+
+@contextlib.contextmanager
+def _pair_steps(circ):
+    """Counts, inside the block, the pairwise contraction steps by the
+    kind of their operands ("numpy" for the host rewrites), and the
+    circuit's final contractions by the devices their operands lay on."""
+    from quimb_torch.ops import contraction
+
+    steps, finals = {}, {}
+    pair = contraction._pair_contract
+    final = circ._contract
+
+    def counted(a, la, b, lb, lo):
+        kind = a.device.type if isinstance(a, torch.Tensor) else "numpy"
+        steps[kind] = steps.get(kind, 0) + 1
+        return pair(a, la, b, lb, lo)
+
+    def recorded(tn, *args, **kwargs):
+        out = final(tn, *args, **kwargs)
+        for t in tn.tensor_map.values():
+            kind = (t.data.device.type if isinstance(t.data, torch.Tensor)
+                    else "numpy")
+            finals[kind] = finals.get(kind, 0) + 1
+        return out
+
+    contraction._pair_contract = counted
+    circ._contract = recorded
+    try:
+        yield steps, finals
+    finally:
+        contraction._pair_contract = pair
+        del circ._contract
+
+
+def _circuit_amplitudes(circ, dtype, ref):
+    """Each amplitude cold, then warm, gated against REFBASE; the warm
+    call split into the host rewrite and the card's contraction."""
+    from quimb_torch.ops.contraction import contract_backend
+
+    worst = 0.0
+    for b, want in ref.items():
+        _, cold_s = _timed(lambda: circ.amplitude(b))
+        with _pair_steps(circ) as (steps, finals):
+            amp, warm_s = _timed(lambda: circ.amplitude(b))
+        if set(finals) != {"cuda"}:
+            raise AssertionError(f"amplitude's final operands lay on "
+                                 f"{finals}, not only on the card")
+        rehearsal, host_s = _timed(lambda: circ.amplitude(b, rehearse=True))
+        tn, expr = rehearsal["tn"], rehearsal["tree"]
+        tn.apply_to_arrays(lambda a: torch.as_tensor(a, device="cuda"))
+        _, card_s = _timed(lambda: tn.contract(..., optimize="auto"))
+        rel = abs(amp - want) / abs(want)
+        worst = max(worst, rel)
+        print(f"circuit {dtype} amplitude {b[:12]}...: {amp!r}, relative "
+              f"to REFBASE {rel:.3e}; cold {cold_s:.3f} s, warm "
+              f"{warm_s:.3f} s = host rewrite and path (rehearse=True) "
+              f"{host_s:.3f} s + the rest; the contraction alone on the "
+              f"card {card_s * 1e3:.2f} ms ({len(tn.tensor_map)} tensors, "
+              f"{len(expr.steps)} steps, flops {expr.flops:.3e}, width "
+              f"{expr.width:.1f}); pairwise steps by operand {steps}",
+              flush=True)
+    print(f"circuit {dtype}: largest relative distance from REFBASE "
+          f"{worst:.3e} (bound {CIRC_AMP_TOL[dtype]:.0e})", flush=True)
+    if not worst <= CIRC_AMP_TOL[dtype]:
+        raise AssertionError(f"circuit {dtype} amplitudes miss REFBASE")
+    b0 = "0" * CIRC_N
+    host_amp, host_s = _timed(lambda: circ.amplitude(b0, backend="numpy"))
+    rel = abs(host_amp - circ.amplitude(b0)) / abs(host_amp)
+    tn = circ.amplitude(b0, rehearse=True)["tn"]
+    with contract_backend("numpy"):
+        _, host_c_s = _timed(lambda: tn.contract(..., optimize="auto"))
+    print(f"circuit {dtype} amp0 by backend='numpy': {host_s:.3f} s, its "
+          f"contraction alone on the host {host_c_s * 1e3:.2f} ms, relative "
+          f"to the card's {rel:.3e}", flush=True)
+    share, top, wall_us, count = _busy_share(lambda: circ.amplitude(b0))
+    print(f"circuit {dtype} warm amp0 under torch.profiler: "
+          f"{wall_us / 1e3:.1f} ms wall, {count} device activities, busy "
+          "share " + ("not measured" if share is None else f"{share:.4f}"),
+          flush=True)
+    for name, us in top:
+        print(f"  {us / 1e3:.3f} ms  {name[:100]}", flush=True)
+
+
+def _marginal_exprs(circ):
+    """The circuit's cached marginal expressions, as their cache entries:
+    (the batched ones, the single ones)."""
+    cache = circ._region_expr_cache
+    keys = [k for k in list(cache) if cache[k] != "fallback"]
+    return ([cache[k] for k in keys if k[0] == "batch"],
+            [cache[k] for k in keys if k[0] != "batch"])
+
+
+def run_circuit_path():
+    """The 53-qubit circuit through the entry points, with no device."""
+    qasm = _circuit_qasm()
+    ref = _circuit_reference()
+    _reset_launches()
+    for dtype in (torch.complex128, torch.complex64):
+        circ, secs = _timed(lambda: quimb_torch.tensor.Circuit
+                            .from_openqasm2_str(qasm, dtype=dtype))
+        if circ.device.type != "cuda":
+            raise AssertionError(f"Circuit with no device is on "
+                                 f"{circ.device}, not the GPU")
+        print(f"circuit {dtype}: built from OpenQASM in {secs:.3f} s, "
+              f"{circ.num_gates} gates, {circ._psi.num_tensors} tensors "
+              f"(host arrays)", flush=True)
+        _circuit_amplitudes(circ, dtype, ref)
+        if dtype == torch.complex128:
+            main_circ = circ
+
+    with _pair_steps(main_circ) as (steps, finals):
+        samples, secs = _timed(lambda: tuple(main_circ.sample(
+            CIRC_SAMPLES, seed=CIRC_SEED)))
+    batched, single = _marginal_exprs(main_circ)
+    print(f"circuit sample({CIRC_SAMPLES}, seed={CIRC_SEED}): {secs:.3f} s; "
+          f"{len(batched)} of {-(-CIRC_N // 10)} groups by a batched "
+          "expression "
+          + ", ".join(f"({e[0].flops:.3e} flops, width {e[0].width:.1f})"
+                      for e in batched)
+          + f"; {len(single)} single marginal expressions "
+          + ", ".join(f"({e[0].flops:.3e} flops, width {e[0].width:.1f})"
+                      for e in single)
+          + "; the other groups by the per-sample route; pairwise steps by "
+          f"operand {steps}; operands of the per-sample final contractions "
+          f"by device {finals}", flush=True)
+    # the busy share over a short draw from a fresh circuit: profiling the
+    # whole draw (about a million device activities) takes minutes
+    fresh = quimb_torch.tensor.Circuit.from_openqasm2_str(qasm)
+    share, top, wall_us, count = _busy_share(
+        lambda: list(fresh.sample(2, seed=CIRC_SEED)))
+    print(f"circuit sample(2, seed={CIRC_SEED}) of a fresh circuit under "
+          f"torch.profiler: {wall_us / 1e6:.3f} s, {count} device "
+          "activities, busy share " + ("not measured" if share is None
+                                       else f"{share:.4f}"), flush=True)
+    for name, us in top:
+        print(f"  {us / 1e3:.3f} ms  {name[:100]}", flush=True)
+    for i, (got, want) in enumerate(zip(samples, CIRC_REF_SAMPLES)):
+        print(f"  sample {i}: {got} {'==' if got == want else '!='} "
+              f"quimb_tpu's", flush=True)
+    if samples != CIRC_REF_SAMPLES:
+        raise AssertionError("the circuit's samples differ from quimb_tpu's")
+    where = {a.device.type for entry in (*batched, *single)
+             for a in entry[1]}
+    if not set(finals) <= {"cuda"} or not where <= {"cuda"}:
+        raise AssertionError(f"sampling's final operands lay on {finals}, "
+                             f"its cached expressions' on {where}")
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError(f"the circuit launched sandwich kernels "
+                             f"{dict(ck.LAUNCHES)}")
+
+
 def main():
     t_start = time.perf_counter()
     check_device()
@@ -1307,6 +1531,8 @@ def main():
         run_tebd_path(dtype)
     torch.cuda.empty_cache()
     run_exact_path()
+    torch.cuda.empty_cache()
+    run_circuit_path()
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{

@@ -8,7 +8,9 @@ of a GPU run in a hand-written CUDA kernel, and ``TEBD`` time evolution.
 And the exact layer: sparse Hamiltonians (``ham_heis``) applied term by
 term on the device (``device_operator``), computational-basis kets, the
 Lanczos ``groundenergy`` / ``groundstate`` / ``eigensystem_partial``, and
-Krylov ``expm_multiply`` and ``Evolution``. Every builder and entry point
+Krylov ``expm_multiply`` and ``Evolution``. And the tensor-network object
+layer (``Tensor``, ``TensorNetwork``, simplification, gating) with the exact
+circuit simulator ``Circuit``. Every builder and entry point
 puts its tensors on the GPU unless it is given another ``device``, such as
 ``"cpu"``. The package imports torch, never JAX.
 """

@@ -5,8 +5,8 @@ MPO tensors ``(wl, wr, u, d)`` and MPS tensors ``(l, p, r)`` — so a
 state or operator crosses as numpy arrays, with no reshaping; a sparse
 Hamiltonian of the exact layer crosses as its scipy matrix; a tensor or
 a tensor network crosses with its arrays read as numpy arrays and its
-``inds`` and ``tags`` kept. Tensors land on ``device``, the GPU unless the
-caller names another.
+``inds`` and ``tags`` kept; a circuit crosses as its list of gates.
+Tensors land on ``device``, the GPU unless the caller names another.
 """
 
 import numpy as np
@@ -66,6 +66,22 @@ def from_tpu_tensor_network(tn, device=None):
                          for t in tn.tensor_map.values()], virtual=True)
     new.exponent = getattr(tn, "exponent", 0.0)
     return new
+
+
+def from_tpu_gates(gates):
+    """quimb_tpu's ``Circuit.gates`` -> the port's ``Gate`` objects, with
+    the same label, parameters, qubits, controls, round, parametrization
+    and tags; a raw gate's array is read as a numpy array. A circuit's
+    gates are its parameters: ``Circuit.from_gates(from_tpu_gates(...))``
+    rebuilds any quimb_tpu circuit in the port."""
+    from .tensor.circuit.gates import Gate
+
+    return [
+        Gate(g.label, g.params, g.qubits, controls=g.controls,
+             round=g.round, parametrize=g.parametrize, tags=g.tags,
+             array=None if g.label != "RAW" else to_host(g.array))
+        for g in gates
+    ]
 
 
 def to_numpy(tensors):

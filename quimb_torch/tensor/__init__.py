@@ -1,6 +1,7 @@
 """Tensor-network algorithms of quimb_torch: the object layer (``Tensor``,
 ``TensorNetwork`` and their functions, as quimb_tpu's ``tensor/__init__.py``
-exports them) and the 1D engines on lists of site tensors."""
+exports them), the circuit simulator and the 1D engines on lists of site
+tensors."""
 
 from ..ops.contraction import (
     array_contract,
@@ -18,6 +19,8 @@ from ..ops.contraction import (
 )
 from ..utils import oset
 from . import networking  # noqa: F401
+from .circuit import *  # noqa: F401,F403
+from .circuit import __all__ as _circuit_all
 from .core import (
     COPY_tensor,
     IsoTensor,
@@ -81,5 +84,6 @@ __all__ = [
     "inds_to_eq",
     "set_contract_backend",
     "set_contract_strategy",
+    *_circuit_all,
     *_tn1d_all,
 ]

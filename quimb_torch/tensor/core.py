@@ -2266,10 +2266,14 @@ class TensorNetwork:
     )
 
     def rank_simplify(self, inplace=False, **kwargs):
-        raise _deferred(12, "TensorNetwork.rank_simplify (simplify.py)")
+        from .simplify import rank_simplify as _rs
+
+        return _rs(self, inplace=inplace, **kwargs)
 
     def full_simplify(self, seq="ADCR", inplace=False, **kwargs):
-        raise _deferred(12, "TensorNetwork.full_simplify (simplify.py)")
+        from .simplify import full_simplify as _fs
+
+        return _fs(self, seq=seq, inplace=inplace, **kwargs)
 
     full_simplify_ = functools.partialmethod(full_simplify, inplace=True)
     rank_simplify_ = functools.partialmethod(rank_simplify, inplace=True)
@@ -2289,8 +2293,11 @@ class TensorNetwork:
                         "(fitting.py)")
 
     def gate_inds(self, G, inds, contract=False, **kwargs):
-        raise _deferred("16 (needed by items 12 and 14(b))",
-                        "TensorNetwork.gate_inds (gating.py)")
+        from .gating import tensor_network_gate_inds
+
+        return tensor_network_gate_inds(
+            self, G, inds, contract=contract, **kwargs
+        )
 
     gate_inds_ = functools.partialmethod(gate_inds, inplace=True)
 
@@ -3508,10 +3515,14 @@ def _delegate_networking(name):
 # simplify delegations
 def _delegate_simplify(name):
     def meth(self, *args, inplace=False, **kwargs):
-        raise _deferred(12, f"TensorNetwork.{name} (simplify.py)")
+        from . import simplify
+
+        return getattr(simplify, name)(
+            self, *args, inplace=inplace, **kwargs
+        )
 
     meth.__name__ = name
-    meth.__doc__ = f"``simplify.{name}``, not ported yet (item 12)."
+    meth.__doc__ = f"Delegates to ``simplify.{name}``."
     return meth
 
 
@@ -3643,8 +3654,14 @@ def _wire_parity_methods():
 
     def compress_simplify(self, inplace=False, max_bond=8, **kwargs):
         """Simplify then cap every bond (reference
-        ``compress_simplify``)."""
-        raise _deferred(12, "TensorNetwork.compress_simplify (simplify.py)")
+        ``compress_simplify``). A compression that fails raises."""
+        tn = self if inplace else self.copy()
+        tn.full_simplify_(**kwargs)
+        for ix, tids in tuple(tn.ind_map.items()):
+            if len(tids) == 2 and tn.ind_size(ix) > max_bond:
+                t1, t2 = (tn.tensor_map[t] for t in tids)
+                tensor_compress_bond(t1, t2, max_bond=max_bond)
+        return tn
 
     TN.compress_simplify = compress_simplify
     TN.compress_simplify_ = functools.partialmethod(

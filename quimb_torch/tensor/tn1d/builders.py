@@ -47,7 +47,9 @@ def MPS_rand_state(L, bond_dim, phys_dim=2, normalize=True, dtype=None,
         env = np.ones((1, 1))
         log_nrm2 = 0.0
         for A in arrays:
-            env = np.einsum("ab,apx,bpy->xy", env, A, A)
+            # two pairwise products, each O(chi^3 p): env @ A, then A
+            env = np.tensordot(np.tensordot(env, A, axes=(0, 0)), A,
+                               axes=((0, 1), (0, 1)))
             scale = np.linalg.norm(env)
             env = env / scale
             log_nrm2 += math.log(scale)

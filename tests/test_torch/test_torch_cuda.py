@@ -1,7 +1,8 @@
 """quimb_torch on a CUDA GPU: the hand-written sandwich kernels (3xTF32
 for float32, FP64 tensor cores for float64) against their plain version,
 small DMRG2, DMRG1, ParallelDMRG and TEBD runs against the CPU port, the
-checked complex SVD and the exact layer's matvecs and solvers.
+checked complex SVD, the exact layer's matvecs and solvers, the object
+layer and a circuit's amplitudes and samples.
 
 Every test here needs a GPU and skips without one. The file imports no
 JAX; on a GPU machine run it without the JAX setup of the test
@@ -538,3 +539,45 @@ def test_tensor_of_numpy_lands_on_card(cuda):
     assert t.data.is_cuda and t.dtype == torch.float64
     assert COPY_tensor(2, ("a", "b")).data.is_cuda
     assert Tensor(torch.ones(2), inds=("a",)).data.device.type == "cpu"
+
+
+def _brickwork_qasm(n, depth):
+    """benchref/circuit53.py's seeded brickwork as OpenQASM 2 (numpy only,
+    loaded by its path)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "benchref", "circuit53.py")
+    spec = importlib.util.spec_from_file_location("circuit53", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.qasm_circuit(n, depth)
+
+
+@pytest.mark.parametrize("route", ["batched", "per_sample"])
+def test_circuit_on_card_matches_cpu(cuda, route, monkeypatch):
+    """A 16-qubit depth-8 circuit built with no device (so on the card)
+    against the same circuit on the CPU: amplitudes and a reduced density
+    matrix to 1e-12 relative in complex128, and 8 samples of one seed
+    identical on both routes of the breadth-first sampler."""
+    from quimb_torch.tensor import Circuit
+    from quimb_torch.tensor.circuit import core as circuit_core
+
+    if route == "per_sample":
+        monkeypatch.setattr(circuit_core, "_EXPR_FLOPS_LIMIT", 0)
+    q = _brickwork_qasm(16, 8)
+    card = Circuit.from_openqasm2_str(q)
+    cpu = Circuit.from_openqasm2_str(q, device="cpu")
+    assert card.device.type == "cuda"
+    rng = np.random.default_rng(0)
+    for b in ["0" * 16, *("".join(rng.choice(["0", "1"], size=16))
+                          for _ in range(3))]:
+        a, c = card.amplitude(b), cpu.amplitude(b)
+        assert abs(a - c) <= 1e-12 * abs(c)
+    rho = card.partial_trace((3, 4))
+    assert rho.is_cuda
+    rel = torch.linalg.norm(rho.cpu() - cpu.partial_trace((3, 4)))
+    assert rel.item() <= 1e-12 * torch.linalg.norm(rho).item()
+    assert list(card.sample(8, seed=42, group_size=5)) == \
+        list(cpu.sample(8, seed=42, group_size=5))

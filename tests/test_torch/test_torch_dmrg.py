@@ -55,6 +55,28 @@ def test_mps_rand_state():
     np.testing.assert_allclose(nrm.item(), 1.0, rtol=1e-12)
 
 
+def test_mps_rand_state_matches_the_three_operand_normalisation():
+    """The normalisation contracts its environment in two pairwise
+    products; the arrays equal those of the former single three-operand
+    ``np.einsum("ab,apx,bpy->xy", ...)`` at 1e-12 relative (L=8, chi=8)."""
+    import math
+
+    L, chi = 8, 8
+    got = to_numpy(quimb_torch.MPS_rand_state(L, chi, seed=3, device="cpu"))
+    rng = np.random.default_rng(3)
+    arrays = [rng.standard_normal((min(chi, 2**i, 2 ** (L - i)), 2,
+                                   min(chi, 2 ** (i + 1), 2 ** (L - i - 1))))
+              for i in range(L)]
+    env, log_nrm2 = np.ones((1, 1)), 0.0
+    for A in arrays:
+        env = np.einsum("ab,apx,bpy->xy", env, A, A)
+        scale = np.linalg.norm(env)
+        env, log_nrm2 = env / scale, log_nrm2 + math.log(scale)
+    f = math.exp(-(log_nrm2 + math.log(env.item())) / (2 * L))
+    for g, A in zip(got, arrays):
+        np.testing.assert_allclose(g, A * f, rtol=1e-12, atol=0)
+
+
 def test_mps_rand_state_long_chain_float32():
     """128 sites of random tensors span hundreds of decades of norm; the
     log-space normalisation keeps every float32 tensor finite."""

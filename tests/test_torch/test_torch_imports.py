@@ -27,6 +27,11 @@ def test_import_never_imports_jax():
         "import quimb_torch.ops.paths, quimb_torch.ops.native\n"
         "import quimb_torch.tensor.networking, quimb_torch.utils\n"
         "import quimb_torch.tensor.array_ops, quimb_torch.gen.rand\n"
+        "import quimb_torch.tensor.simplify, quimb_torch.tensor.gating\n"
+        "import quimb_torch.tensor.circuit.core\n"
+        "import quimb_torch.tensor.circuit.gates\n"
+        "import quimb_torch.tensor.circuit.qasm\n"
+        "import quimb_torch.tensor.tn1d.core\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
     )
@@ -48,6 +53,24 @@ def test_object_layer_never_imports_jax_when_used():
         "tn.compress_between('I1', 'I2', max_bond=1, cutoff=0.0)\n"
         "ts[3].split(('k3',), max_bond=1, cutoff=0.0)\n"
         "native.native_available()\n"
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
+    )
+    assert res.returncode == 0, res.stderr
+
+
+def test_circuit_never_imports_jax_when_used():
+    """Building a circuit from QASM, simplifying, gating, an amplitude, a
+    marginal and two samples load neither jax nor quimb_tpu."""
+    res = _run(
+        "import sys\n"
+        "from quimb_torch.tensor import Circuit\n"
+        "q = ('OPENQASM 2.0;\\nqreg q[4];\\nh q[0];\\ncx q[0],q[1];\\n'\n"
+        "     'u3(0.1,0.2,0.3) q[2];\\ncz q[1],q[2];\\ncx q[2],q[3];\\n')\n"
+        "c = Circuit.from_openqasm2_str(q, device='cpu')\n"
+        "c.amplitude('0000')\n"
+        "c.compute_marginal((0, 1), fix={3: 0})\n"
+        "list(c.sample(2, seed=1, group_size=2))\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
     )
