@@ -6,15 +6,17 @@ GPU and the CUDA toolkit::
     python3 chip_smoke.py
 
 It drives the 1D ground-state engine of the spin-1/2 Heisenberg chain at
-L=128, chi=256 through the package's entry points (``MPO_ham_heis``,
-``MPS_rand_state``, ``DMRG2``, ``DMRG1``, ``ParallelDMRG``): DMRG2 on a
+L=128, chi=256 through the package's entry points (``MPO_ham_heis`` and
+``MPS_rand_state`` build an MPO and an MPS object; ``DMRG2``, ``DMRG1``
+and ``ParallelDMRG`` take them, and ``.state`` is an MPS): DMRG2 on a
 float32 state, with every effective-Hamiltonian matvec in the
 hand-written 3xTF32 sandwich kernel and every bond split by the card's
 default split (``svd:sub``, run as ``svd:sub0`` at cutoff 0), then
 ParallelDMRG from that state; DMRG2 on a float64 state, with every matvec
 in the hand-written FP64 tensor-core (DMMA) kernel, then DMRG1 from that
-state. Then the TEBD quench, the exact 20-qubit core and the 53-qubit
-circuit. Its phases, each fatal on failure:
+state. Then the MPS / MPO object layer on that state, the TEBD quench,
+the exact 20-qubit core, and the 53-qubit circuit as a lazy network and as
+an MPS. Its phases, each fatal on failure:
 
 1. the device: a CUDA GPU is required; its name and power limit are
    printed;
@@ -109,14 +111,38 @@ circuit. Its phases, each fatal on failure:
    warm ``amp0`` and over ``sample(2)`` of a fresh circuit, and the
    sampler's groups by route.
 
+14. (after phase 12) the MPS / MPO object layer on the float64 DMRG2
+   state as a ``MatrixProductState`` on the card, with ``MPO_ham_heis``'s
+   MPO: ⟨ψ|ψ⟩ and ⟨ψ|H|ψ⟩ by ``expec_TN_1D`` (the sandwich aligned by
+   ``align_TN_1D``), within 1e-12 and 1e-10 of the float64 host sweep;
+   ``schmidt_values`` and ``entropy`` at bonds 32, 64, 96 against a
+   float64 host SVD of the same canonical tensor (1e-10); ``correlation``
+   of S^z at (63, 64) and ``magnetization(64)`` against a host sweep;
+   ``H.apply(psi)`` (bond 1280), ⟨Hψ|Hψ⟩ within 1e-8 of the host's ⟨H²⟩
+   and a variance ≥ 0; its ``compress(max_bond=256, cutoff=0)``, with
+   ⟨ψ|Hψ_c⟩ within |ψ| |Hψ − Hψ_c| of ⟨ψ|H|ψ⟩; ``sample(20, seed=42)``,
+   each probability within 1e-10 relative of |amplitude|² / ⟨ψ|ψ⟩.
+   Printed: each step's seconds, the peak allocation over H.apply and the
+   compression, and the busy share over H.apply + the variance and over a
+   window of the compression;
+15. (after phase 13) the 53-qubit circuit as a ``CircuitMPS`` on the card
+   (``from_openqasm2_str``, cutoff 1e-10, no bond limit), complex128 and
+   complex64: the gates' seconds; in complex128 the bonds equal to
+   quimb_tpu's, the five REFBASE amplitudes within 1e-5 relative and
+   within 1e-7 of quimb_tpu's ``CircuitMPS`` (constants from
+   ``scripts/circuit53_mps_samples.py``), ``sample(20, seed=42)`` equal
+   to quimb_tpu's strings; in complex64 the amplitudes within 1e-3 of
+   REFBASE. Printed: ``fidelity_estimate()`` and the busy share over the
+   gates.
+
 The line before the last is the kernels' JSON summary, one entry per
 kernel with its launches on its paths (DMRG2 and ParallelDMRG for
 float32, DMRG2 and DMRG1 for float64; TEBD runs no hand-written kernel),
 its time against the plain einsum (the one library call that computes
 the same product) and its bound. The exact core runs no hand-written
-kernel: its matvec is plain PyTorch, measured in phase 11; nor does the
-circuit: quimb_tpu's circuit path has no Pallas kernel, and its pairwise
-contractions run as batched ``matmul`` on the card. The last line is
+kernel: its matvec is plain PyTorch, measured in phase 11; nor do the
+circuit and the MPS layer: quimb_tpu's have no Pallas kernel, and their
+products run as batched ``matmul`` on the card. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -347,18 +373,30 @@ def sandwich_bound(dtype):
                                    else "bytes"), flop
 
 
-def host_f64_energy(As, Ws):
-    """⟨ψ|H|ψ⟩/⟨ψ|ψ⟩ of the state in float64 numpy (bench.py:333-348)."""
-    energy, norm = host_f64_sweep(As, Ws)
+def _arrays(x):
+    """The uniform site arrays of an MPS, (l, p, r), or of an MPO,
+    (wl, wr, u, d), the chain's ends padded with size-1 bonds; a list of
+    such arrays as it is."""
+    if isinstance(x, list):
+        return x
+    if isinstance(x, quimb_torch.MatrixProductOperator):
+        return D._mpo_uniform_arrays(x)
+    return D._mps_uniform_arrays(x)
+
+
+def host_f64_energy(psi, H):
+    """⟨ψ|H|ψ⟩/⟨ψ|ψ⟩ of the MPS under the MPO in float64 numpy
+    (bench.py:333-348)."""
+    energy, norm = host_f64_sweep(psi, H)
     return energy / norm
 
 
-def host_f64_sweep(As, Ws):
-    """(⟨ψ|H|ψ⟩, ⟨ψ|ψ⟩) of the state by the sweep of bench.py:333-348, in
-    float64 numpy on the host."""
+def host_f64_sweep(psi, H):
+    """(⟨ψ|H|ψ⟩, ⟨ψ|ψ⟩) of the MPS under the MPO by the sweep of
+    bench.py:333-348, in float64 numpy on the host."""
     env = np.ones((1, 1, 1))
     nrm = np.ones((1, 1))
-    for A, W in zip(As, Ws):
+    for A, W in zip(_arrays(psi), _arrays(H)):
         Ah = to_host(A).astype(np.float64)
         Wh = to_host(W).astype(np.float64)
         env = np.einsum("bwk,kdx->bwdx", env, Ah, optimize=True)
@@ -401,11 +439,14 @@ def run_main_path(dtype):
     print(f"{dtype} main path: {time.perf_counter() - t_path:.3f} s, "
           f"sandwich launches {dict(ck.LAUNCHES)}", flush=True)
 
-    for A in dmrg.state:
+    state = dmrg.state
+    if not isinstance(state, quimb_torch.MatrixProductState):
+        raise AssertionError(f"DMRG2.state is a {type(state)}, not an MPS")
+    for A in _arrays(state):
         if not (A.shape[0] <= CHI and A.shape[2] <= CHI and A.dtype == dtype
-                and bool(torch.isfinite(A).all())):
+                and A.is_cuda and bool(torch.isfinite(A).all())):
             raise AssertionError(f"bad site tensor {tuple(A.shape)}")
-    _check_energy(dmrg.state, dmrg._W, dtype,
+    _check_energy(state, dmrg.ham, dtype,
                   f"{dtype} DMRG2 state (last sweep energy "
                   f"{dmrg.energies[-1]:.10f})")
     return dmrg, launches
@@ -438,7 +479,7 @@ def _mixed_canonical_bond(dmrg, i):
     orthogonality center there, as a right sweep meets it: the state
     after a left sweep is right-canonical, and QR moves its center from
     site 0 to site i. Returns (lenv, renv, theta0)."""
-    As = list(dmrg.state)
+    As = list(dmrg._A)
     for j in range(i):
         l, p, r = As[j].shape
         Q, _, Rf = decomp.qr_stabilized(As[j].reshape(l * p, r))
@@ -578,10 +619,10 @@ def _sweep_launches(kernel, before, at_least, what):
     return n
 
 
-def _check_energy(state, Ws, dtype, what):
-    """The host float64 energy of ``state`` against E_REF."""
+def _check_energy(state, H, dtype, what):
+    """The host float64 energy of the MPS ``state`` against E_REF."""
     t0 = time.perf_counter()
-    e64 = host_f64_energy(state, Ws)
+    e64 = host_f64_energy(state, H)
     rel = abs(e64 - E_REF) / abs(E_REF)
     tol = E_REL_TOL[dtype]
     print(f"{what}: float64 host energy {e64:.10f} "
@@ -598,8 +639,8 @@ PAR_SEGMENTS, PAR_NCV, PAR_INNER, PAR_SWEEPS = 2, 8, 3, 2
 def run_parallel_path(dmrg2):
     """ParallelDMRG from the float32 DMRG2 state (bench.py:239-245);
     returns its float32 kernel launches."""
-    Ws = dmrg2._W
-    pd = ParallelDMRG(dmrg2.state, Ws, max_bond=CHI, n_segments=PAR_SEGMENTS,
+    H = dmrg2.ham
+    pd = ParallelDMRG(dmrg2.state, H, max_bond=CHI, n_segments=PAR_SEGMENTS,
                       ncv=PAR_NCV, inner_passes=PAR_INNER)
     _reset_launches()
     t_path = time.perf_counter()
@@ -623,19 +664,19 @@ def run_parallel_path(dmrg2):
     print(f"ParallelDMRG path: {time.perf_counter() - t_path:.3f} s, "
           f"sandwich launches {dict(ck.LAUNCHES)}", flush=True)
     state = pd.get_state()
-    for A in state:
+    for A in _arrays(state):
         if not bool(torch.isfinite(A).all()):
             raise AssertionError(f"bad site tensor {tuple(A.shape)}")
-    _check_energy(state, Ws, torch.float32, "ParallelDMRG float32 state")
+    _check_energy(state, H, torch.float32, "ParallelDMRG float32 state")
     return launches
 
 
 def run_dmrg1_path(dmrg2):
     """DMRG1 from the float64 DMRG2 state; returns its float64 kernel
     launches."""
-    Ws = dmrg2._W
-    e2 = host_f64_energy(dmrg2.state, Ws)
-    dmrg = quimb_torch.DMRG1(Ws, bond_dims=CHI, cutoffs=0.0, p0=dmrg2.state)
+    H = dmrg2.ham
+    e2 = host_f64_energy(dmrg2.state, H)
+    dmrg = quimb_torch.DMRG1(H, bond_dims=CHI, cutoffs=0.0, p0=dmrg2.state)
     _check_default_split(dmrg, "DMRG1")
     opts = dmrg.opts
     ncv = max(2 * opts["local_eig_ncv"], opts["local_eig_ncv_floor"])
@@ -645,7 +686,7 @@ def run_dmrg1_path(dmrg2):
         # one launch per Lanczos vector; the basis stops at the dimension
         # of the one-site space, 4 at a chain end
         at_least = opts["local_eig_restarts"] * sum(
-            min(ncv, A.numel()) for A in dmrg.state)
+            min(ncv, A.numel()) for A in dmrg._A)
         before = dict(ck.LAUNCHES)
         t0 = time.perf_counter()
         en = dmrg.sweep(direction, max_bond=CHI, cutoff=0.0,
@@ -659,7 +700,7 @@ def run_dmrg1_path(dmrg2):
     launches = ck.LAUNCHES["sandwich_f64"]
     print(f"DMRG1 path: {time.perf_counter() - t_path:.3f} s, sandwich "
           f"launches {dict(ck.LAUNCHES)}", flush=True)
-    e1 = _check_energy(dmrg.state, Ws, torch.float64, "DMRG1 float64 state")
+    e1 = _check_energy(dmrg.state, H, torch.float64, "DMRG1 float64 state")
     rise = (e1 - e2) / abs(e2)
     print(f"DMRG1 energy against the DMRG2 state's {e2:.10f}: relative "
           f"change {rise:.3e} (rise bound 1e-9)", flush=True)
@@ -770,8 +811,9 @@ def run_tn_layer(dmrg):
     from quimb_torch.ops.native import native_available
 
     t_phase = time.perf_counter()
-    As = list(dmrg.state)
-    Ws = quimb_torch.MPO_ham_heis(L, dtype=torch.float64, device="cuda")
+    As = _arrays(dmrg.state)
+    Ws = _arrays(quimb_torch.MPO_ham_heis(L, dtype=torch.float64,
+                                          device="cuda"))
     _reset_launches()
     before = dict(ck.LAUNCHES)
     ket, ham, bra = _tn_networks(As, Ws)
@@ -1041,7 +1083,7 @@ def run_tebd_path(dtype):
     psi0 = quimb_torch.MPS_neel_state(TEBD_L, dtype=TEBD_REAL[dtype])
     H = quimb_torch.ham_1d_heis(TEBD_L)
     opts = {"max_bond": TEBD_CHI, "cutoff": TEBD_CUTOFF}
-    if not all(A.is_cuda for A in psi0):
+    if not all(t.data.is_cuda for t in psi0):
         raise AssertionError("MPS_neel_state with no device is not on the GPU")
 
     warm = quimb_torch.TEBD(psi0, H, split_opts=opts)
@@ -1110,9 +1152,13 @@ def run_tebd_path(dtype):
     for name, us in top:
         print(f"  {us / 1e3:.3f} ms  {name[:100]}", flush=True)
 
-    nrm = _host_norm(tebd.pt)
+    pt = tebd.pt
+    if not (isinstance(pt, quimb_torch.MatrixProductState)
+            and all(t.data.is_cuda for t in pt)):
+        raise AssertionError("TEBD.pt is not an MPS on the GPU")
+    nrm = _host_norm(_arrays(pt))
     print(f"TEBD {dtype} final state: bonds "
-          f"{max(A.shape[2] for A in tebd.pt)}, |<psi|psi> - 1| "
+          f"{max(pt.bond_sizes())}, |<psi|psi> - 1| "
           f"{abs(nrm - 1):.3e} (bound {TEBD_NORM_TOL[dtype]:.0e})", flush=True)
     if not abs(nrm - 1) <= TEBD_NORM_TOL[dtype]:
         raise AssertionError("the TEBD state lost its norm")
@@ -1511,6 +1557,375 @@ def run_circuit_path():
                              f"{dict(ck.LAUNCHES)}")
 
 
+# -- phase 14: the north-star state under the MPS / MPO object API -----------
+
+# bonds whose Schmidt values and entropies are held to a host SVD
+NS_BONDS = (32, 64, 96)
+# bounds, relative: <psi|psi> and <psi|H|psi>/<psi|psi> against the host
+# sweep (float64 sums over 128 sites in other orders); the Schmidt values
+# against a float64 host SVD of the same canonical tensor; <H^2> against
+# the host's; each sample's probability against |amplitude|^2 / <psi|psi>
+NS_NORM_TOL, NS_ENERGY_TOL, NS_SCHMIDT_TOL, NS_H2_TOL, NS_OMEGA_TOL = (
+    1e-12, 1e-10, 1e-10, 1e-8, 1e-10)
+NS_MAX_BOND, NS_SAMPLES, NS_SEED = 256, 20, 42
+# the sites of the S^z correlation and of the magnetization; the sites of
+# the compression's profiled window
+NS_PAIR, NS_SITE, NS_WINDOW = (63, 64), 64, (60, 68)
+
+
+def host_f64_local(psi, ops):
+    """<psi|prod_i ops[i]|psi> / <psi|psi> of the MPS for single-site
+    operators ``ops`` ({site: 2 x 2}), in float64 numpy on the host."""
+    env = np.ones((1, 1))
+    nrm = np.ones((1, 1))
+    for i, A in enumerate(_arrays(psi)):
+        A = to_host(A).astype(np.float64)
+        OA = np.einsum("ud,kdx->kux", ops[i], A) if i in ops else A
+        # env (bra, ket): the ket's site, then the bra's
+        env = np.tensordot(np.tensordot(env, OA, axes=(1, 0)), A,
+                           axes=((0, 1), (0, 1))).T
+        nrm = np.tensordot(np.tensordot(nrm, A, axes=(1, 0)), A,
+                           axes=((0, 1), (0, 1))).T
+    return float(env.reshape(())) / float(nrm.reshape(()))
+
+
+def host_f64_h2(psi, H):
+    """<psi|H H|psi> of the MPS under the MPO, by a sweep whose environment
+    carries both operator layers (b, w, v, k), in float64 numpy on the
+    host."""
+    env = np.ones((1, 1, 1, 1))
+    for A, W in zip(_arrays(psi), _arrays(H)):
+        A = to_host(A).astype(np.float64)
+        W = to_host(W).astype(np.float64)
+        env = np.tensordot(env, A, axes=(3, 0))            # b w v d x
+        env = np.tensordot(env, W, axes=((2, 3), (0, 3)))  # b w x y e
+        env = np.tensordot(env, W, axes=((1, 4), (0, 3)))  # b x y z u
+        env = np.tensordot(env, A, axes=((0, 4), (0, 1)))  # x y z a
+        env = env.transpose(3, 2, 1, 0)                    # a z y x
+    return float(env.reshape(()))
+
+
+def _rel_check(what, got, want, tol):
+    rel = abs(got - want) / abs(want)
+    print(f"  {what}: {got!r} against the host's {want!r}, relative "
+          f"{rel:.3e} (bound {tol:.0e})", flush=True)
+    if not rel <= tol:
+        raise AssertionError(f"{what} misses the host value")
+
+
+def _busy_window(H, psi):
+    """The device's busy share over H.apply + the variance, and over a
+    window of the compression: the QRs of sites 60-67 in its
+    left-canonizing sweep and the truncations of bonds 67-60 in its
+    compressing sweep, the other steps run outside the profile. (A
+    profile of the whole compression holds about 1.5 million device
+    activities and takes minutes to process.)"""
+    from quimb_torch.tensor.tn1d.core import expec_TN_1D
+
+    def apply_and_variance():
+        Hp = H.apply(psi)
+        float(expec_TN_1D(Hp.H, Hp))
+
+    shares = {"H.apply + variance": _busy_share(apply_and_variance)}
+    Hp = H.apply(psi)
+    a, b = NS_WINDOW
+
+    def canonize(start, stop):
+        for i in range(start, stop):
+            Hp.left_canonize_site(i)
+
+    def truncate(start, stop):
+        for i in range(start, stop, -1):
+            quimb_torch.tensor_compress_bond(
+                Hp[Hp.site_tag(i - 1)], Hp[Hp.site_tag(i)], absorb="left",
+                max_bond=NS_MAX_BOND, cutoff=0.0)
+
+    # compress(form="right") step by step: left_canonize, then truncate
+    # from the right end
+    canonize(0, a)
+    shares[f"compression: QRs of sites {a}-{b - 1}"] = _busy_share(
+        lambda: canonize(a, b))
+    canonize(b, L - 1)
+    truncate(L - 1, b)
+    shares[f"compression: truncations of bonds {b}-{a + 1}"] = _busy_share(
+        lambda: truncate(b, a))
+    truncate(a, 0)
+    torch.cuda.synchronize()
+    if max(Hp.bond_sizes()) != NS_MAX_BOND:
+        raise AssertionError("the step-by-step compression's bonds")
+    busy = wall = 0.0
+    for what, (share, top, wall_us, count) in shares.items():
+        print(f"{what} under torch.profiler: {wall_us / 1e3:.1f} ms wall, "
+              f"{count} device activities, busy share "
+              + ("not measured" if share is None else f"{share:.4f}"),
+              flush=True)
+        for name, us in top:
+            print(f"  {us / 1e3:.3f} ms  {name[:100]}", flush=True)
+        busy += (share or 0.0) * wall_us
+        wall += wall_us
+    print("busy share over the three windows: "
+          + (f"{busy / wall:.4f}" if busy > 0 else "not measured"),
+          flush=True)
+
+
+def run_mps_layer(dmrg):
+    """The MPS / MPO object layer on the float64 DMRG2 state, L=128,
+    chi=256: norms, expectations, Schmidt values, H|psi> at bond 1280, its
+    compression back to 256, and samples."""
+    from quimb_torch.tensor.tn1d.core import align_TN_1D, expec_TN_1D
+
+    t_phase = time.perf_counter()
+    _reset_launches()
+    psi = dmrg.state
+    H = quimb_torch.MPO_ham_heis(L, dtype=torch.float64, device="cuda")
+    if not (isinstance(psi, quimb_torch.MatrixProductState)
+            and isinstance(H, quimb_torch.MatrixProductOperator)
+            and all(t.data.is_cuda and t.dtype == torch.float64
+                    for t in (*psi, *H))):
+        raise AssertionError("the state and the MPO are not float64 objects "
+                             "on the card")
+    e_host, n_host = host_f64_sweep(psi, H)
+    E = e_host / n_host
+    print(f"MPS layer: state bonds up to {max(psi.bond_sizes())}; host sweep "
+          f"<psi|psi> {n_host!r}, E {E!r}", flush=True)
+
+    nrm, secs = _timed(lambda: float(expec_TN_1D(psi.H, psi)))
+    print(f"<psi|psi> by expec_TN_1D: {secs:.3f} s", flush=True)
+    _rel_check("<psi|psi>", nrm, n_host, NS_NORM_TOL)
+    sandwich = align_TN_1D(psi.H, H, psi)
+    e, secs = _timed(lambda: float(expec_TN_1D(*sandwich)))
+    print(f"<psi|H|psi> by expec_TN_1D of the aligned (bra, H, ket): "
+          f"{secs:.3f} s", flush=True)
+    _rel_check("<psi|H|psi>/<psi|psi>", e / nrm, E, NS_ENERGY_TOL)
+
+    for i in NS_BONDS:
+        c = psi.copy()
+        (s2, ent), secs = _timed(lambda: (c.schmidt_values(i), c.entropy(i)))
+        t = c[c.site_tag(i)]
+        lb = c.bond(i - 1, i)
+        mat = to_host(t.transpose(lb, *(ix for ix in t.inds if ix != lb))
+                      .data).reshape(t.ind_size(lb), -1)
+        ref = np.linalg.svd(mat, compute_uv=False) ** 2
+        s2 = to_host(s2)
+        rel = np.abs(s2 - ref).max() / ref.max()
+        p = ref[ref > 1e-16]
+        ent_ref = float(-np.sum(p * np.log2(p)))
+        print(f"bond {i}: schmidt_values + entropy {secs:.3f} s (two "
+              f"canonizing sweeps of {L - 1} QRs), {s2.size} values, largest "
+              f"distance from the host SVD's {rel:.3e} (bound "
+              f"{NS_SCHMIDT_TOL:.0e}); entropy {ent!r}, host {ent_ref!r}",
+              flush=True)
+        if not (rel <= NS_SCHMIDT_TOL
+                and abs(ent - ent_ref) <= NS_SCHMIDT_TOL * ent_ref):
+            raise AssertionError(f"Schmidt values at bond {i} miss the host")
+
+    Sz = np.diag([0.5, -0.5])
+    i, j = NS_PAIR
+    corr, secs = _timed(lambda: float(psi.correlation(
+        torch.tensor(Sz, dtype=torch.float64, device="cuda"), i, j)))
+    print(f"correlation(Sz, {i}, {j}): {secs:.3f} s", flush=True)
+    _rel_check(f"<Sz_{i} Sz_{j}>", corr, host_f64_local(psi, {i: Sz, j: Sz}),
+               NS_ENERGY_TOL)
+    mag, secs = _timed(lambda: float(psi.magnetization(NS_SITE)))
+    want = host_f64_local(psi, {NS_SITE: 2 * Sz})
+    print(f"magnetization({NS_SITE}): {mag!r} ({secs:.3f} s), host "
+          f"{want!r}", flush=True)
+    if not abs(mag - want) <= 1e-10:
+        raise AssertionError("magnetization misses the host value")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    steps = {}
+    Hpsi, steps["H.apply"] = _timed(lambda: H.apply(psi))
+    h2, steps["<Hpsi|Hpsi>"] = _timed(
+        lambda: float(expec_TN_1D(Hpsi.H, Hpsi)))
+    Hc, steps["compress"] = _timed(
+        lambda: Hpsi.copy().compress(max_bond=NS_MAX_BOND, cutoff=0.0))
+    peak = torch.cuda.max_memory_allocated()
+    overlap, steps["<psi|Hpsi_c>"] = _timed(
+        lambda: float(expec_TN_1D(psi.H, Hc)))
+    cross, steps["<Hpsi|Hpsi_c>"] = _timed(
+        lambda: float(expec_TN_1D(Hpsi.H, Hc)))
+    hc2, steps["<Hpsi_c|Hpsi_c>"] = _timed(
+        lambda: float(expec_TN_1D(Hc.H, Hc)))
+    for name, secs in steps.items():
+        print(f"  {name}: {secs:.3f} s", flush=True)
+    print(f"H.apply: bonds up to {max(Hpsi.bond_sizes())}; compressed to "
+          f"{max(Hc.bond_sizes())}; peak allocation "
+          f"{peak / 1e9:.3f} GB (allocated before {m0 / 1e9:.3f} GB)",
+          flush=True)
+    if max(Hpsi.bond_sizes()) != 5 * CHI or max(Hc.bond_sizes()) != \
+            NS_MAX_BOND:
+        raise AssertionError("the bonds of H|psi> or of its compression")
+    t0 = time.perf_counter()
+    h2_host = host_f64_h2(psi, H) / n_host
+    var = h2 / nrm - (e / nrm) ** 2
+    print(f"<H^2> {h2 / nrm!r} (host {h2_host!r}, "
+          f"{time.perf_counter() - t0:.1f} s); variance <H^2> - E^2 "
+          f"{var!r}", flush=True)
+    _rel_check("<H^2>", h2 / nrm, h2_host, NS_H2_TOL)
+    if not var >= -NS_H2_TOL * abs(h2_host):
+        raise AssertionError("the variance is negative")
+    # |<psi|H psi> - <psi|H psi_c>| <= |psi| |H psi - H psi_c|
+    dist = max(h2 + hc2 - 2 * cross, 0.0) ** 0.5
+    gap = abs(overlap - e)
+    print(f"<psi|H psi_c>/<psi|psi> {overlap / nrm!r} against E {E!r}: "
+          f"|<psi|H psi> - <psi|H psi_c>| {gap:.3e}, bound |psi| "
+          f"|H psi - H psi_c| = {nrm ** 0.5 * dist:.3e}", flush=True)
+    if not gap <= nrm ** 0.5 * dist * (1 + 1e-6) + 1e-10 * abs(e):
+        raise AssertionError("the compressed H|psi> misses E beyond its "
+                             "truncation")
+
+    _busy_window(H, psi)
+    del Hpsi, Hc
+    torch.cuda.empty_cache()
+
+    samples, secs = _timed(lambda: list(psi.sample(NS_SAMPLES,
+                                                   seed=NS_SEED)))
+    worst = 0.0
+    for config, omega in samples:
+        amp = float(psi.amplitude(config))
+        worst = max(worst, abs(omega - amp**2 / nrm) / omega)
+    print(f"sample({NS_SAMPLES}, seed={NS_SEED}): {secs:.3f} s "
+          f"({NS_SAMPLES * L} host reads); largest relative distance of "
+          f"omega from |amplitude|^2 / <psi|psi> {worst:.3e} (bound "
+          f"{NS_OMEGA_TOL:.0e}); first {''.join(map(str, samples[0][0]))}",
+          flush=True)
+    if not worst <= NS_OMEGA_TOL:
+        raise AssertionError("a sample's probability misses its amplitude")
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError(f"the MPS layer launched sandwich kernels "
+                             f"{dict(ck.LAUNCHES)}")
+    print(f"MPS layer phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+# -- phase 15: CircuitMPS on the 53-qubit circuit -----------------------------
+
+# relative distance of each amplitude from jcmgray/quimb's (REFBASE): the
+# cutoff of 1e-10 truncates; quimb_tpu's CircuitMPS in complex128 reaches
+# 7.4e-7 to 2.8e-6. And from quimb_tpu's own CircuitMPS amplitudes in
+# complex128 (the same truncations in another SVD library)
+CMPS_AMP_TOL = {torch.complex128: 1e-5, torch.complex64: 1e-3}
+CMPS_QTPU_TOL = 1e-7
+# quimb_tpu's CircuitMPS of this circuit (complex128, max_bond None, cutoff
+# 1e-10), from ``JAX_PLATFORMS=cpu python scripts/circuit53_mps_samples.py``
+# on a CPU: the bond sizes, the five amplitudes and sample(20, seed=42)
+CMPS_QTPU_BONDS = (
+    2, 4, 8, 16, 32, 64, 63, 64, 48, 64, 64, 64, 64, 64, 62, 64, 44, 64, 64,
+    64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 58,
+    64, 51, 64, 43, 64, 64, 64, 64, 64, 64, 32, 16, 8, 4, 2)
+CMPS_QTPU_AMPS = {
+    "00000000000000000000000000000000000000000000000000000":
+        -6.642596423259146e-10 + 2.2014072995913224e-09j,
+    "11100000011111111111011001101110010100000000011101100":
+        5.249241920633562e-10 - 1.3687899627047772e-09j,
+    "11101111110101111000011011011001110100100110001010011":
+        -1.7683882267324828e-10 - 4.937894419184729e-10j,
+    "00101010111010101010111011101100101111000100001101110":
+        -4.499185038862496e-09 - 2.2823562511805886e-09j,
+    "01100010100011111000111111001011100110101000011011001":
+        1.2496932058819877e-09 + 1.3041551857880446e-09j,
+}
+CMPS_QTPU_SAMPLES = (
+    "11110111010100101011101110100111000001010110100100001",
+    "01111001101101001001000011110100010010000011001110111",
+    "00010000011111110000000001000010100011100100110001000",
+    "10100101101010100111111101000101001001100111100010111",
+    "01110010011101001000111111001100011000110001100001101",
+    "00000000110001100000000001010111111101110010010000111",
+    "01110011110010110101010111111010100001101010001011010",
+    "00000100101100111011001001010011011110111010001010000",
+    "01010111110001111010011101011000111100101111010000000",
+    "01010100110100111110100111001111001001001011000001110",
+    "01010010011111001010000100001100110110000111111110110",
+    "01000001000001111111111101011110110001010111001110100",
+    "01111100110100011010101111000111000111101000000110110",
+    "00100111110000101110011111000110001000001000100001100",
+    "10110011010110010010001000010111011011011110101000100",
+    "00011101100100100110111000100100011110011111101100111",
+    "01001100110100110111001011110010001100000101001100000",
+    "00110100011111100010100000111000110101001001011101000",
+    "11110011001010100001000010111001000111101010100100111",
+    "01010110011001111101011011111000000110001101010011011",
+)
+
+
+def run_circuit_mps_path():
+    """The 53-qubit circuit as a CircuitMPS on the card, in complex128 and
+    complex64."""
+    t_phase = time.perf_counter()
+    qasm = _circuit_qasm()
+    ref = _circuit_reference()
+    if set(ref) != set(CMPS_QTPU_AMPS):
+        raise AssertionError("REFBASE's bitstrings are not quimb_tpu's")
+    _reset_launches()
+    for dtype in (torch.complex128, torch.complex64):
+        circ, secs = _timed(lambda: quimb_torch.CircuitMPS
+                            .from_openqasm2_str(qasm, dtype=dtype,
+                                                device="cuda"))
+        psi = circ.psi
+        bonds = tuple(psi.bond_sizes())
+        if not (circ.device.type == "cuda" and all(
+                t.data.is_cuda and t.dtype == dtype for t in psi)):
+            raise AssertionError("the CircuitMPS state is not on the card")
+        print(f"CircuitMPS {dtype}: {circ.num_gates} gates applied in "
+              f"{secs:.3f} s; bonds up to {max(bonds)}, "
+              f"{'equal to' if bonds == CMPS_QTPU_BONDS else 'unlike'} "
+              f"quimb_tpu's {bonds}", flush=True)
+        if dtype == torch.complex128 and bonds != CMPS_QTPU_BONDS:
+            raise AssertionError("the bond sizes differ from quimb_tpu's")
+        worst = worst_q = 0.0
+        for b, want in ref.items():
+            amp, secs = _timed(lambda: circ.amplitude(b))
+            rel = abs(amp - want) / abs(want)
+            rel_q = abs(amp - CMPS_QTPU_AMPS[b]) / abs(CMPS_QTPU_AMPS[b])
+            worst, worst_q = max(worst, rel), max(worst_q, rel_q)
+            print(f"  amplitude {b[:12]}...: {amp!r} ({secs:.3f} s), "
+                  f"relative to REFBASE {rel:.3e}, to quimb_tpu's "
+                  f"CircuitMPS {rel_q:.3e}", flush=True)
+        print(f"CircuitMPS {dtype}: largest relative distance from REFBASE "
+              f"{worst:.3e} (bound {CMPS_AMP_TOL[dtype]:.0e}), from "
+              f"quimb_tpu's {worst_q:.3e}" + (
+                  f" (bound {CMPS_QTPU_TOL:.0e})"
+                  if dtype == torch.complex128 else ""), flush=True)
+        if not worst <= CMPS_AMP_TOL[dtype]:
+            raise AssertionError(f"CircuitMPS {dtype} misses REFBASE")
+        if dtype == torch.complex128 and not worst_q <= CMPS_QTPU_TOL:
+            raise AssertionError("CircuitMPS misses quimb_tpu's amplitudes")
+        fid, secs = _timed(circ.fidelity_estimate)
+        print(f"CircuitMPS {dtype}: fidelity_estimate {fid!r} ({secs:.3f} "
+              "s)", flush=True)
+        if dtype == torch.complex128:
+            samples, secs = _timed(lambda: tuple(circ.sample(
+                CIRC_SAMPLES, seed=CIRC_SEED)))
+            same = samples == CMPS_QTPU_SAMPLES
+            print(f"CircuitMPS sample({CIRC_SAMPLES}, seed={CIRC_SEED}): "
+                  f"{secs:.3f} s ({CIRC_SAMPLES * CIRC_N} host reads), "
+                  f"{'equal to' if same else 'unlike'} quimb_tpu's", flush=True)
+            for i, (got, want) in enumerate(zip(samples, CMPS_QTPU_SAMPLES)):
+                if got != want:
+                    print(f"  sample {i}: {got} != {want}", flush=True)
+            if not same:
+                raise AssertionError("CircuitMPS samples differ from "
+                                     "quimb_tpu's")
+        share, top, wall_us, count = _busy_share(
+            lambda: quimb_torch.CircuitMPS.from_openqasm2_str(
+                qasm, dtype=dtype, device="cuda"))
+        print(f"CircuitMPS {dtype} gate application under torch.profiler: "
+              f"{wall_us / 1e6:.3f} s wall, {count} device activities, busy "
+              "share " + ("not measured" if share is None
+                          else f"{share:.4f}"), flush=True)
+        for name, us in top:
+            print(f"  {us / 1e3:.3f} ms  {name[:100]}", flush=True)
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError(f"CircuitMPS launched sandwich kernels "
+                             f"{dict(ck.LAUNCHES)}")
+    print(f"CircuitMPS phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main():
     t_start = time.perf_counter()
     check_device()
@@ -1526,6 +1941,7 @@ def main():
     check_splits(bond_breakdown(dmrg))
     launches[torch.float64] += run_dmrg1_path(dmrg)
     run_tn_layer(dmrg)
+    run_mps_layer(dmrg)
     del dmrg
     for dtype in TEBD_REAL:
         run_tebd_path(dtype)
@@ -1533,6 +1949,8 @@ def main():
     run_exact_path()
     torch.cuda.empty_cache()
     run_circuit_path()
+    torch.cuda.empty_cache()
+    run_circuit_mps_path()
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{

@@ -1,16 +1,18 @@
 """quimb_torch: the PyTorch and CUDA port of quimb_tpu.
 
-It holds quimb_tpu's 1D engines on lists of site tensors: the builders
-(``MPO_ham_heis``, ``MPS_rand_state``, the product states and the
-``ham_1d_*`` local Hamiltonians), the ground-state searches ``DMRG2``,
-``DMRG1`` and ``ParallelDMRG``, with every effective-Hamiltonian matvec
-of a GPU run in a hand-written CUDA kernel, and ``TEBD`` time evolution.
+It holds quimb_tpu's MPS / MPO object layer (``MatrixProductState``,
+``MatrixProductOperator``, their builders ``MPS_*`` / ``MPO_*`` and the
+``ham_1d_*`` local Hamiltonians) and the 1D engines that take it: the
+ground-state searches ``DMRG2``, ``DMRG1``, ``DMRGX`` and
+``ParallelDMRG``, with every effective-Hamiltonian matvec of a GPU run in
+a hand-written CUDA kernel, and ``TEBD`` time evolution.
 And the exact layer: sparse Hamiltonians (``ham_heis``) applied term by
 term on the device (``device_operator``), computational-basis kets, the
 Lanczos ``groundenergy`` / ``groundstate`` / ``eigensystem_partial``, and
 Krylov ``expm_multiply`` and ``Evolution``. And the tensor-network object
 layer (``Tensor``, ``TensorNetwork``, simplification, gating) with the exact
-circuit simulator ``Circuit``. Every builder and entry point
+circuit simulator ``Circuit`` and the MPS simulators ``CircuitMPS``,
+``CircuitPermMPS`` and ``CircuitMPSLazy``. Every builder and entry point
 puts its tensors on the GPU unless it is given another ``device``, such as
 ``"cpu"``. The package imports torch, never JAX.
 """

@@ -1,8 +1,9 @@
 """Carry arrays and operators between quimb_tpu and quimb_torch.
 
-The two packages share the uniform array layout of the DMRG engine —
-MPO tensors ``(wl, wr, u, d)`` and MPS tensors ``(l, p, r)`` — so a
-state or operator crosses as numpy arrays, with no reshaping; a sparse
+An MPS or MPO crosses as its tensors' numpy arrays, with their index
+names and tags, into the port's class; raw lists of arrays (the uniform
+layout of the DMRG engine, MPO tensors ``(wl, wr, u, d)`` and MPS tensors
+``(l, p, r)``) cross as lists of tensors; a sparse
 Hamiltonian of the exact layer crosses as its scipy matrix; a tensor or
 a tensor network crosses with its arrays read as numpy arrays and its
 ``inds`` and ``tags`` kept; a circuit crosses as its list of gates.
@@ -15,22 +16,48 @@ from .core import LocalTermsHam, SparseHam
 from .ops.backend import resolve_device, to_device, to_host
 
 
-def from_tpu_mps(arrays, device=None, dtype=None):
-    """A quimb_tpu MPS's site arrays as ``(l, p, r)`` numpy arrays, its
-    ends padded with size-1 bonds (``dmrg._mps_uniform_arrays(psi)``) ->
-    the port's list of tensors. quimb_tpu draws random states from JAX's
-    generator, which torch cannot reproduce: carry them across with this."""
+def _from_tpu_network(tn, cls, device, dtype, **ids):
+    """quimb_tpu's 1D network ``tn`` -> the port's ``cls`` with the same
+    tensors, index names and tags, its arrays read as numpy arrays."""
+    from .tensor.core import Tensor, TensorNetwork
+
     device = resolve_device(device)
-    return [to_device(A, device=device, dtype=dtype) for A in arrays]
+    new = TensorNetwork([
+        Tensor(to_device(np.asarray(t.data), device=device, dtype=dtype),
+               inds=tuple(t.inds), tags=tuple(t.tags))
+        for t in tn.tensor_map.values()], virtual=True)
+    new.view_as_(cls, L=tn.L, site_tag_id=tn.site_tag_id, **ids)
+    return new
+
+
+def from_tpu_mps(mps, device=None, dtype=None):
+    """A quimb_tpu ``MatrixProductState`` -> the port's, with the same
+    site tags, site and bond index names, and arrays (read as numpy).
+    quimb_tpu draws random states from JAX's generator, which torch
+    cannot reproduce: carry them across with this."""
+    from .tensor.tn1d.core import MatrixProductState
+
+    return _from_tpu_network(mps, MatrixProductState, device, dtype,
+                             site_ind_id=mps.site_ind_id)
+
+
+def from_tpu_mpo(mpo, device=None, dtype=None):
+    """A quimb_tpu ``MatrixProductOperator`` -> the port's, with the same
+    site tags, index names and arrays."""
+    from .tensor.tn1d.core import MatrixProductOperator
+
+    return _from_tpu_network(mpo, MatrixProductOperator, device, dtype,
+                             upper_ind_id=mpo.upper_ind_id,
+                             lower_ind_id=mpo.lower_ind_id)
 
 
 def from_tpu_arrays(Ws, As, device=None, dtype=None):
-    """quimb_tpu's ``dmrg._mpo_uniform_arrays(H)`` and
-    ``dmrg._mps_uniform_arrays(psi)`` (numpy arrays) -> the port's
-    ``(ham_arrays, p0)`` tensor lists."""
+    """Raw lists, such as quimb_tpu's ``dmrg._mpo_uniform_arrays(H)`` and
+    ``dmrg._mps_uniform_arrays(psi)`` (numpy arrays) -> lists of tensors
+    on ``device``."""
     device = resolve_device(device)
     return ([to_device(W, device=device, dtype=dtype) for W in Ws],
-            from_tpu_mps(As, device=device, dtype=dtype))
+            [to_device(A, device=device, dtype=dtype) for A in As])
 
 
 def from_tpu_operator(H, device=None):

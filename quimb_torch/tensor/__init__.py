@@ -1,7 +1,7 @@
 """Tensor-network algorithms of quimb_torch: the object layer (``Tensor``,
 ``TensorNetwork`` and their functions, as quimb_tpu's ``tensor/__init__.py``
-exports them), the circuit simulator and the 1D engines on lists of site
-tensors."""
+exports them), the circuit simulators, and the MPS / MPO layer with the 1D
+engines that take it."""
 
 from ..ops.contraction import (
     array_contract,

@@ -1,7 +1,10 @@
 """Quantum circuit simulators (reference ``quimb/tensor/circuit/``): the
-exact lazy tensor-network ``Circuit``, its gates and its QASM parsers."""
+exact lazy tensor-network ``Circuit``, the MPS simulators ``CircuitMPS``,
+``CircuitPermMPS`` and ``CircuitMPSLazy``, the gates and the QASM
+parsers."""
 
 from .core import Circuit, CircuitBase, CircuitDense
+from .mps import CircuitMPS, CircuitMPSLazy, CircuitPermMPS
 from .gates import (
     ALL_GATES,
     CONSTANT_GATES,
@@ -17,6 +20,9 @@ __all__ = [
     "Circuit",
     "CircuitBase",
     "CircuitDense",
+    "CircuitMPS",
+    "CircuitMPSLazy",
+    "CircuitPermMPS",
     "Gate",
     "ALL_GATES",
     "CONSTANT_GATES",

@@ -38,7 +38,6 @@ from ...utils import LRU, oset
 from ..core import Tensor, TensorNetwork, rand_uuid
 from ..gating import tensor_network_gate_inds
 from ..tn1d.builders import MPS_computational_state
-from ..tn1d.core import MatrixProductState
 from .gates import PARAM_GATES, Gate
 
 # The cached marginal expressions are used while their log2 width and
@@ -151,7 +150,11 @@ class CircuitBase:
             if N is None:
                 raise ValueError("supply N or psi0")
             self.N = N
-            psi0 = _computational_mps("0" * N, self.dtype)
+            # the lazy simulators keep host leaves; the MPS ones start on
+            # the device
+            psi0 = MPS_computational_state(
+                "0" * N, dtype=self.dtype,
+                device="cpu" if self._host_gate_arrays else self.device)
         else:
             self.N = psi0.L
             psi0 = psi0.copy().astype_(self.dtype)
@@ -592,25 +595,6 @@ class CircuitBase:
     def from_openqasm3_file(cls, fname, **circuit_opts):
         with open(fname) as f:
             return cls.from_openqasm3_str(f.read(), **circuit_opts)
-
-
-def _computational_mps(binary, dtype):
-    """The computational basis state ``binary`` as an open-chain
-    :class:`MatrixProductState` of host arrays: the ``(1, p, 1)`` tensors
-    of ``tn1d.builders.MPS_computational_state`` laid out 'lrp', the
-    size-1 bonds at the chain's ends dropped."""
-    L = len(binary)
-    arrays = []
-    for i, A in enumerate(MPS_computational_state(binary, dtype=dtype,
-                                                  device="cpu")):
-        A = to_host(A).transpose(0, 2, 1)
-        if i == L - 1:
-            A = A[:, 0]
-        if i == 0:
-            A = A[0]
-        arrays.append(A)
-    with contract_backend("numpy"):
-        return MatrixProductState(arrays, shape="lrp")
 
 
 def _probabilities(data, B=None):

@@ -442,14 +442,24 @@ class Gate:
             kwargs.get("array", self._array),
         )
 
-    def build_mpo(self, L=None, **kwargs):
-        """An MPO representation of this (possibly controlled) gate
-        (reference ``Gate.build_mpo`` gates.py:1123). The port has no MPO
-        class yet."""
-        raise NotImplementedError(
-            "Gate.build_mpo is not ported to quimb_torch yet: ROADMAP item "
-            "14(b) (tn1d/core.py's MatrixProductOperator)"
-        )
+    def build_mpo(self, L=None, device=None, **kwargs):
+        """This (possibly controlled) gate as an MPO on ``device``, the GPU
+        unless named (reference ``Gate.build_mpo`` gates.py:1123): the
+        array's axes ordered by ascending qubit, split by successive SVDs
+        over its qubits, identities elsewhere on the ``L``-site chain."""
+        from ...ops.backend import to_host
+        from ..tn1d.core import MatrixProductOperator
+
+        qubits = (*self._controls, *self._qubits)
+        if L is None:
+            L = max(qubits, default=0) + 1
+        U = to_host(self.build_array())
+        n = len(qubits)
+        order = sorted(range(n), key=lambda i: qubits[i])
+        Ut = U.reshape((2,) * (2 * n)).transpose(
+            *order, *(n + o for o in order)).reshape(2**n, 2**n)
+        return MatrixProductOperator.from_dense(
+            Ut, dims=2, sites=sorted(qubits), L=L, device=device, **kwargs)
 
     def __repr__(self):
         return (

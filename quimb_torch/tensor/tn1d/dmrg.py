@@ -17,6 +17,12 @@ size-1 bonds), environments ``(b, w, k)`` — and at every bond (two-site,
 - the sweep driver (:class:`DMRG`), which right-canonizes the chain
   before a fresh right sweep.
 
+The engines take quimb_tpu's arguments: an MPO object and an MPS start
+state, whose uniform arrays they sweep; ``.state`` gives a
+:class:`~.core.MatrixProductState` back. :class:`DMRGX` (dense local
+solves, largest overlap) and :class:`MovingEnvironment` (the object-level
+environments of a block of sites) come with them.
+
 quimb_tpu fuses the uniform bulk of a sweep into ``lax.scan`` programs
 only to cut XLA dispatches; here the per-site loop is the one path. The
 energy comes back to the host once per sweep.
@@ -31,7 +37,13 @@ from ...linalg.lanczos import _lanczos_basis, _tridiag_eigh
 from ...ops import decomp
 from ...ops.backend import to_host
 from ...ops.cuda_kernels import resolve_sandwich
+from ..core import TensorNetwork
 from .builders import MPS_rand_state
+from .core import (
+    _arrays_to_mps,
+    _mpo_uniform_arrays,
+    _mps_uniform_arrays,
+)
 
 
 def get_default_opts(device=torch.device("cpu")):
@@ -319,12 +331,15 @@ def _mpo_has_identity_channels(Ws, tol=1e-10):
 
 
 class DMRG:
-    """One- or two-site DMRG on an open chain.
+    """One- or two-site DMRG (reference ``DMRG`` dmrg.py:501).
 
     Parameters
     ----------
-    ham_arrays : list of tensors (wl, wr, u, d)
-        The MPO, e.g. from :func:`MPO_ham_heis`.
+    ham : MatrixProductOperator
+        The Hamiltonian, e.g. from :func:`MPO_ham_heis`. A cyclic one is
+        brought to its exact open form (``ham.to_obc()``, quimb_tpu's
+        ``cyclic_mode="obc"``); the ring engine of ``cyclic_mode=
+        "segmented"`` (quimb_tpu's ``dmrg_cyclic.py``) is not ported.
     bond_dims : int or sequence of int
         The bond dimension, or a schedule of them for successive sweeps.
     cutoffs : float or sequence of float
@@ -333,36 +348,58 @@ class DMRG:
         Sites per local update: two-site updates split the updated pair
         and can change the bond dimension; one-site updates move the
         gauge by QR / LQ and keep every bond as it is.
-    p0 : list of tensors (l, p, r), optional
+    which : str
+        The eigenpair sought; only ``"SA"`` (the ground state) is swept.
+    p0 : MatrixProductState, optional
         The start state, e.g. from :func:`MPS_rand_state`; random by
-        default.
+        default (``ham.rand_state``).
 
-    Every tensor lives on the device of ``ham_arrays``. The dtype is the
-    promotion of the MPO's and the start state's. The sandwich matvec's
-    prepare step is resolved here, once, from that device and dtype.
+    The sweeps run on the uniform arrays of the MPO and the state (site
+    tensors ``(l, p, r)``, MPO tensors ``(wl, wr, u, d)``), on the device
+    of ``ham``; :attr:`state` gives the state back as a
+    :class:`MatrixProductState`. The dtype is the promotion of the MPO's
+    and the start state's. The sandwich matvec's prepare step is resolved
+    here, once, from that device and dtype.
     """
 
-    def __init__(self, ham_arrays, bond_dims, cutoffs=1e-9, bsz=2, p0=None):
+    def __init__(self, ham, bond_dims, cutoffs=1e-9, bsz=2, which="SA",
+                 p0=None, cyclic_mode="auto"):
         if bsz not in (1, 2):
             raise ValueError(f"bsz must be 1 or 2, got {bsz}")
-        self.L = len(ham_arrays)
+        self.L = ham.L
         self.bsz = bsz
-        self.phys_dim = ham_arrays[0].shape[2]
+        self.which = which
+        self.phys_dim = ham.phys_dim()
         self._set_bond_dim_seq(bond_dims)
         self._set_cutoff_seq(cutoffs)
-        device = ham_arrays[0].device
+        if getattr(ham, "cyclic", False):
+            if cyclic_mode == "auto":
+                cyclic_mode = "segmented" if ham.L >= 40 else "obc"
+            if cyclic_mode == "segmented" and bsz == 2 and which == "SA":
+                raise NotImplementedError(
+                    "DMRG's cyclic_mode='segmented' (dmrg_cyclic.py) is not "
+                    "ported to quimb_torch yet: ROADMAP item 14(c); "
+                    "cyclic_mode='obc' runs the ring in its open form")
+            ham = ham.to_obc()
+        self.ham = ham
+        self._W = _mpo_uniform_arrays(ham)
+        device = self._W[0].device
         self.opts = get_default_opts(device)
         if p0 is None:
             p0 = MPS_rand_state(self.L, self._bond_dim0, self.phys_dim,
-                                dtype=ham_arrays[0].dtype, device=device)
-        if any(t.device != device for t in (*ham_arrays, *p0)):
+                                dtype=ham.dtype, device=device,
+                                site_ind_id=ham.upper_ind_id,
+                                site_tag_id=ham.site_tag_id)
+        self._like = p0
+        A = _mps_uniform_arrays(p0)
+        if any(t.device != device for t in (*self._W, *A)):
             raise ValueError("the MPO and the start state must lie on "
                              "one device")
-        dtype = ham_arrays[0].dtype
-        for t in (*ham_arrays, *p0):
+        dtype = self._W[0].dtype
+        for t in (*self._W, *A):
             dtype = torch.promote_types(dtype, t.dtype)
-        self._W = [W.to(dtype) for W in ham_arrays]
-        self._A = [A.to(dtype) for A in p0]
+        self._W = [W.to(dtype) for W in self._W]
+        self._A = [a.to(dtype) for a in A]
         self._sandwich = resolve_sandwich(device, dtype)
         # with a Schur-form MPO the environments' identity channels give
         # ⟨ψ|ψ⟩ for free and the sweep energies are exact variational
@@ -384,8 +421,9 @@ class DMRG:
 
     @property
     def state(self):
-        """The MPS as a list of tensors (l, p, r)."""
-        return list(self._A)
+        """The current state, a :class:`MatrixProductState` with the start
+        state's index and tag ids, on the engine's device."""
+        return _arrays_to_mps(self._A, like=self._like)
 
     @property
     def energy(self):
@@ -573,20 +611,252 @@ class DMRG:
 
 
 class DMRG1(DMRG):
-    """One-site DMRG, with quimb_tpu's defaults."""
+    """One-site DMRG, with quimb_tpu's defaults (reference dmrg.py:1147)."""
 
-    def __init__(self, ham_arrays, bond_dims=None, cutoffs=1e-8, p0=None):
+    def __init__(self, ham, which="SA", bond_dims=None, cutoffs=1e-8,
+                 p0=None, **kwargs):
         super().__init__(
-            ham_arrays, bond_dims=bond_dims if bond_dims is not None else 8,
-            cutoffs=cutoffs, bsz=1, p0=p0,
+            ham, bond_dims=bond_dims if bond_dims is not None else 8,
+            cutoffs=cutoffs, bsz=1, which=which, p0=p0, **kwargs,
         )
 
 
 class DMRG2(DMRG):
-    """Two-site DMRG, with quimb_tpu's defaults."""
+    """Two-site DMRG, with quimb_tpu's defaults (reference dmrg.py:1166)."""
 
-    def __init__(self, ham_arrays, bond_dims=None, cutoffs=1e-8, p0=None):
+    def __init__(self, ham, which="SA", bond_dims=None, cutoffs=1e-8,
+                 p0=None, **kwargs):
         super().__init__(
-            ham_arrays, bond_dims=bond_dims if bond_dims is not None else 8,
-            cutoffs=cutoffs, bsz=2, p0=p0,
+            ham, bond_dims=bond_dims if bond_dims is not None else 8,
+            cutoffs=cutoffs, bsz=2, which=which, p0=p0, **kwargs,
         )
+
+
+class DMRGX(DMRG):
+    """DMRG-X: the eigenstate of largest overlap with the current state,
+    for interior (MBL) eigenstates (reference ``DMRGX`` dmrg.py:1190). The
+    local problem is solved densely: ``eigh`` of the effective
+    Hamiltonian built column by column, the eigenvector of largest overlap
+    with the current tensor kept."""
+
+    def __init__(self, ham, p0, bond_dims, cutoffs=1e-8, bsz=2):
+        super().__init__(ham, bond_dims=bond_dims, cutoffs=cutoffs, bsz=bsz,
+                         p0=p0)
+
+    def _local_solve_dense_overlap(self, lenv, Ws, renv, theta0):
+        shape = theta0.shape
+        if len(Ws) == 2:
+            LW1, W2R = _fuse_lw(lenv, Ws[0]), _fuse_wr(Ws[1], renv)
+            mv = lambda th: _heff_matvec_2site(LW1, W2R, th)  # noqa: E731
+        else:
+            LW = _fuse_lw(lenv, Ws[0])
+            mv = lambda th: _heff_matvec_1site(LW, renv, th)  # noqa: E731
+        n = theta0.numel()
+        eye = torch.eye(n, dtype=theta0.dtype, device=theta0.device)
+        H = torch.stack([mv(e.reshape(shape)).reshape(n) for e in eye],
+                        dim=1)
+        w, V = torch.linalg.eigh(H)
+        overlaps = torch.abs(decomp.dag(V) @ theta0.reshape(n)) ** 2
+        best = int(torch.argmax(overlaps))
+        return w[best], V[:, best].reshape(shape)
+
+    def _sweep_right(self, max_bond, cutoff):
+        renv = self._build_right_envs()
+        lenv = self._ones_env()
+        energies = []
+        for i in range(self.L - self.bsz + 1):
+            if self.bsz == 2:
+                theta0 = torch.einsum("kpc,cqr->kpqr", self._A[i],
+                                      self._A[i + 1])
+                en, theta = self._local_solve_dense_overlap(
+                    lenv, (self._W[i], self._W[i + 1]), renv[i + 2], theta0)
+                self._A[i], self._A[i + 1], _ = _split_2site(
+                    theta, max_bond=max_bond, cutoff=cutoff, absorb="right")
+            else:
+                en, theta = self._local_solve_dense_overlap(
+                    lenv, (self._W[i],), renv[i + 1], self._A[i])
+                if i < self.L - 1:
+                    l, p, r = theta.shape
+                    Q, _, Rf = decomp.qr_stabilized(theta.reshape(l * p, r))
+                    self._A[i] = Q.reshape(l, p, Q.shape[-1])
+                    self._A[i + 1] = torch.einsum("ck,kpr->cpr", Rf,
+                                                  self._A[i + 1])
+                else:
+                    self._A[i] = theta
+            A = self._A[i]
+            lenv = _env_step_right(lenv, torch.conj(A), self._W[i], A)
+            energies.append(en)
+        self.local_energies.append(energies)
+        return float(energies[-1].real)
+
+    def _sweep_left(self, max_bond, cutoff):
+        # right-canonize, then sweep right again
+        self._right_canonize_all()
+        return self._sweep_right(max_bond, cutoff)
+
+
+# ---------------------------------------------------------------------------
+# MovingEnvironment
+# ---------------------------------------------------------------------------
+
+
+class MovingEnvironment:
+    """The environments of a block of ``bsz`` sites of a 1D-structured
+    network, moved one site at a time (reference ``MovingEnvironment``
+    dmrg.py:105). Open chains: a ring Hamiltonian reaches DMRG in its
+    open form (``MatrixProductOperator.to_obc``)."""
+
+    def __init__(self, tn, begin, bsz, ssz=0.5, **kwargs):
+        self.tn = tn
+        self.begin = begin
+        self.bsz = bsz
+        self.L = tn._L
+        self.init_environments()
+
+    def site_tag(self, i):
+        return self.tn.site_tag(i % self.L)
+
+    def _absorb(self, j, env, output_inds=None):
+        """The column ``j`` contracted with the environment network
+        ``env`` (or alone), as a one-tensor network."""
+        new = self.tn.select(self.site_tag(j), which="any").copy(
+            virtual=False)
+        if env is not None:
+            new.add_tensor_network(env, virtual=True, check_collisions=False)
+        envt = new.contract(..., preserve_tensor=True,
+                            output_inds=output_inds)
+        return TensorNetwork((envt,), virtual=True, check_collisions=False)
+
+    def init_environments(self):
+        L, bsz = self.L, self.bsz
+        env = None
+        if self.begin == "left":
+            # right environments R[j]: the contraction of columns >= j
+            self._renvs = {L: None}
+            for j in range(L - 1, bsz - 1, -1):
+                env = self._renvs[j] = self._absorb(
+                    j, env, self._boundary_inds(j))
+            self._lenvs = {0: None}
+            self.pos = 0
+        else:
+            self._lenvs = {-1: None}
+            for j in range(0, L - bsz):
+                env = self._lenvs[j] = self._absorb(
+                    j, env, self._boundary_inds(j, side="right"))
+            self._renvs = {L: None}
+            self.pos = L - bsz
+
+    def _boundary_inds(self, j, side="left"):
+        """The indices crossing the boundary left of column ``j``
+        (``side="left"``) or right of it, then the block's other outer
+        indices."""
+        tn = self.tn
+        inside = range(j, self.L) if side == "left" else range(0, j + 1)
+        outside = range(0, j) if side == "left" else range(j + 1, self.L)
+        block = tn.select_any(tuple(map(self.site_tag, inside)))
+        if not outside:
+            return block.outer_inds()
+        rest_inds = set(tn.select_any(tuple(map(self.site_tag,
+                                                outside))).ind_map)
+        return (tuple(ix for ix in block.ind_map if ix in rest_inds)
+                + tuple(ix for ix in block.outer_inds()
+                        if ix not in rest_inds))
+
+    def move_right(self):
+        i = self.pos
+        self._lenvs[i] = self._absorb(i, self._lenvs.get(i - 1))
+        self.pos += 1
+
+    def move_left(self):
+        i = self.pos + self.bsz - 1
+        self._renvs[i] = self._absorb(i, self._renvs.get(i + 1))
+        self.pos -= 1
+
+    def move_to(self, i):
+        while self.pos < i:
+            self.move_right()
+        while self.pos > i:
+            self.move_left()
+
+    def init_segment(self, begin, start, stop):
+        """Rebuild the environments to sweep from the ``begin`` side
+        (reference ``init_segment`` dmrg.py:281; open chains rebuild them
+        all)."""
+        self.begin = begin
+        self.init_environments()
+        return self
+
+    def init_non_segment(self, start, stop):
+        """Nothing to prepare outside the segment on an open chain
+        (reference ``init_non_segment`` dmrg.py:324)."""
+        return self
+
+    def __call__(self):
+        """The current environment network: left environment, the block's
+        sites (views of the network's tensors) and right environment."""
+        i = self.pos
+        block = self.tn.select_any(
+            tuple(self.site_tag(j) for j in range(i, i + self.bsz)))
+        out = TensorNetwork((), virtual=True)
+        for part in (self._lenvs.get(i - 1), block,
+                     self._renvs.get(i + self.bsz)):
+            if part is not None:
+                out.add_tensor_network(part, virtual=True,
+                                       check_collisions=False)
+        return out
+
+
+# ---------------------------------------------------------------------------
+# the rest of DMRG's methods (reference dmrg.py:647-991)
+# ---------------------------------------------------------------------------
+
+
+def _dmrg_sweep_right(self, canonize=True, verbosity=0, **update_opts):
+    """One left-to-right sweep at the schedules' next values (reference
+    ``sweep_right`` dmrg.py:983)."""
+    return self.sweep("R", max_bond=next(self._bond_dims),
+                      cutoff=next(self._cutoffs), canonize=canonize)
+
+
+def _dmrg_sweep_left(self, canonize=True, verbosity=0, **update_opts):
+    """One right-to-left sweep (reference ``sweep_left`` dmrg.py:991)."""
+    return self.sweep("L", max_bond=next(self._bond_dims),
+                      cutoff=next(self._cutoffs), canonize=canonize)
+
+
+def _dmrg_form_local_ops(self, i):
+    """The dense effective Hamiltonian of the ``bsz``-site block at ``i``
+    (reference ``form_local_ops`` dmrg.py:681), a diagnostic built from
+    the current arrays with the sweeps' environment steps."""
+    lenv, renv = self._ones_env(), self._ones_env()
+    for j in range(i):
+        lenv = _env_step_right(lenv, torch.conj(self._A[j]), self._W[j],
+                               self._A[j])
+    for j in range(self.L - 1, i + self.bsz - 1, -1):
+        renv = _env_step_left(renv, torch.conj(self._A[j]), self._W[j],
+                              self._A[j])
+    d, dl = self.phys_dim, self._A[i].shape[0]
+    if self.bsz == 2:
+        LW1, W2R = _fuse_lw(lenv, self._W[i]), _fuse_wr(self._W[i + 1], renv)
+        shape = (dl, d, d, self._A[i + 1].shape[2])
+        mv = lambda th: _heff_matvec_2site(LW1, W2R, th)  # noqa: E731
+    else:
+        LW = _fuse_lw(lenv, self._W[i])
+        shape = (dl, d, self._A[i].shape[2])
+        mv = lambda th: _heff_matvec_1site(LW, renv, th)  # noqa: E731
+    dim = int(np.prod(shape))
+    eye = torch.eye(dim, dtype=self._A[0].dtype, device=self._A[0].device)
+    return torch.stack([mv(e.reshape(shape)).reshape(dim) for e in eye],
+                       dim=1)
+
+
+def _dmrg_post_check(self, i, Neff, loc_gs, loc_en, loc_gs_old):
+    """Open-chain sweeps keep exact orthogonality: nothing to correct
+    (reference ``post_check`` dmrg.py:734)."""
+    return loc_en, loc_gs
+
+
+DMRG.sweep_right = _dmrg_sweep_right
+DMRG.sweep_left = _dmrg_sweep_left
+DMRG.form_local_ops = _dmrg_form_local_ops
+DMRG.post_check = _dmrg_post_check

@@ -4,22 +4,22 @@ local solve that the segment-parallel engine shares.
 Port of the parts of ``quimb_tpu/tensor/tn1d/dmrg_jacobi.py`` that
 :mod:`quimb_torch.tensor.tn1d.dmrg_parallel` imports: the conversions
 between site-tensor lists and zero-padded stacks, the batched two-site
-matvec and the batched tridiagonal eigenvector. quimb_tpu's converters
-read and write MPS / MPO objects on the host; the port has no such
-objects yet, so these take and return its lists of ``(l, p, r)`` and
-``(wl, wr, u, d)`` tensors, on their own device. The whitened
+matvec and the batched tridiagonal eigenvector. The converters take and
+return MPS / MPO objects, as quimb_tpu's do, and stay on the objects'
+device (quimb_tpu's go through host numpy). The whitened
 brickwork engine of that module (``JacobiDMRG``) is not ported here.
 """
 
 import torch
 
 from ...ops import decomp
+from .core import _arrays_to_mps, _mpo_uniform_arrays, _mps_uniform_arrays
 
 
-def mps_to_stack(state, chi):
-    """Uniform (L, chi, d, chi) stack of the site tensors ``state``
-    (each ``(l, p, r)``, the chain ends with size-1 bonds), zero-padded
-    on both bonds."""
+def mps_to_stack(psi, chi):
+    """Uniform (L, chi, d, chi) stack of the open MPS ``psi``'s site
+    tensors, zero-padded on both bonds, on its device."""
+    state = _mps_uniform_arrays(psi)
     L, d = len(state), state[0].shape[1]
     A0 = state[0]
     dtype = A0.dtype
@@ -36,13 +36,12 @@ def mps_to_stack(state, chi):
     return Ms
 
 
-def stack_to_mps(Ms, tol=0.0):
+def _stack_to_arrays(Ms, tol=0.0):
     """Site tensors ``(l, p, r)`` of the padded stack ``Ms``, with each
     inner bond cut to its count of live columns: those with an entry
     above ``tol`` on either side of the bond (quimb_tpu's rule, at least
     one). The chain ends get size-1 bonds."""
     L = Ms.shape[0]
-    # alive bond ranks: columns with any weight on either side
     wr = Ms[:-1].abs().amax(dim=(1, 2))         # right bond of site j - 1
     wl = Ms[1:].abs().amax(dim=(2, 3))          # left bond of site j
     alive = ((wr > tol) | (wl > tol)).sum(dim=-1).tolist()
@@ -50,10 +49,17 @@ def stack_to_mps(Ms, tol=0.0):
     return [Ms[j, :ranks[j], :, :ranks[j + 1]].clone() for j in range(L)]
 
 
-def mpo_to_padded_stack(ham_arrays, w=None):
-    """Uniform (L, w, w, d, d) stack of the MPO tensors ``(wl, wr, u, d)``;
+def stack_to_mps(Ms, like, tol=0.0):
+    """The padded stack ``Ms`` as an MPS with the index and tag ids of
+    ``like``, each bond cut to its live columns (:func:`_stack_to_arrays`)."""
+    return _arrays_to_mps(_stack_to_arrays(Ms, tol), like=like)
+
+
+def mpo_to_padded_stack(ham, w=None):
+    """Uniform (L, w, w, d, d) stack of the open MPO ``ham``'s tensors;
     the chain ends' size-1 bonds sit at channel 0, to pair with one-hot
     channel-0 boundary environments."""
+    ham_arrays = _mpo_uniform_arrays(ham)
     if w is None:
         w = max(max(W.shape[0], W.shape[1]) for W in ham_arrays)
     W0 = ham_arrays[0]

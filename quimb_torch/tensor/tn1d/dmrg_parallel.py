@@ -374,9 +374,9 @@ class ParallelDMRG:
 
     Parameters
     ----------
-    state : list of tensors (l, p, r)
+    psi : MatrixProductState
         The start state, e.g. a converged :class:`DMRG2` state.
-    ham_arrays : list of tensors (wl, wr, u, d)
+    ham : MatrixProductOperator
         The MPO (open chain), e.g. from :func:`MPO_ham_heis`.
     max_bond : int
         The uniform bond dimension (the state is padded to it).
@@ -394,33 +394,34 @@ class ParallelDMRG:
     damp : float
         Blend of each Ritz vector with its warm start (1: none).
 
-    Every tensor lives on the device of ``ham_arrays``, in the promotion
-    of the MPO's and the state's dtypes; the sandwich matvec's prepare
-    step is resolved here, once.
+    Every tensor lives on the device of ``ham``, in the promotion of the
+    MPO's and the state's dtypes; the sandwich matvec's prepare step is
+    resolved here, once.
     """
 
-    def __init__(self, state, ham_arrays, max_bond, n_segments=8, ncv=8,
+    def __init__(self, psi, ham, max_bond, n_segments=8, ncv=8,
                  inner_passes=1, oversample=0, damp=1.0):
+        self.like = psi
         self.chi = int(max_bond)
         self.S = int(n_segments)
         self.ncv = int(ncv)
         self.inner_passes = int(inner_passes)
         self.oversample = int(oversample)
         self.damp = float(damp)
-        device = ham_arrays[0].device
-        if any(t.device != device for t in (*ham_arrays, *state)):
+        self.Ws = mpo_to_padded_stack(ham)
+        self.Ms = mps_to_stack(psi, self.chi)
+        device = self.Ws.device
+        if self.Ms.device != device:
             raise ValueError("the MPO and the state must lie on one device")
-        dtype = ham_arrays[0].dtype
-        for t in (*ham_arrays, *state):
-            dtype = torch.promote_types(dtype, t.dtype)
-        self.Ms = mps_to_stack(state, self.chi).to(dtype)
+        dtype = torch.promote_types(self.Ws.dtype, self.Ms.dtype)
+        self.Ms = self.Ms.to(dtype)
         self.L = int(self.Ms.shape[0])
         if self.L % (2 * self.S):
             raise ValueError(
                 f"L={self.L} must divide into 2*{self.S} half-segments"
             )
         self.m = self.L // self.S
-        self.Ws = mpo_to_padded_stack(ham_arrays).to(dtype)
+        self.Ws = self.Ws.to(dtype)
         d = int(self.Ms.shape[2])
         self.masks = bond_rank_masks(self.L, self.chi, d, dtype=dtype,
                                      device=device)
@@ -446,6 +447,6 @@ class ParallelDMRG:
         return en
 
     def get_state(self):
-        """The state as a list of tensors (l, p, r), each bond cut to its
-        live columns (:func:`stack_to_mps`)."""
-        return stack_to_mps(self.Ms)
+        """The state as a :class:`MatrixProductState` like the start
+        state, each bond cut to its live columns (:func:`stack_to_mps`)."""
+        return stack_to_mps(self.Ms, self.like)

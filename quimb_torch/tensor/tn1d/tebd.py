@@ -1,9 +1,11 @@
 """TEBD: time-evolving block decimation for open 1D chains.
 
-Port of ``quimb_tpu/tensor/tn1d/tebd.py`` on the port's list states
-(tensors ``(l, p, r)``, the ends padded with size-1 bonds). ``LocalHam1D``
-holds the nearest-neighbour terms as host numpy arrays; ``TEBD`` applies
-second- or fourth-order Suzuki-Trotter steps of their exponentials.
+Port of ``quimb_tpu/tensor/tn1d/tebd.py``. ``LocalHam1D`` holds the
+nearest-neighbour terms as host numpy arrays; ``TEBD`` takes a
+:class:`~.core.MatrixProductState` and applies second- or fourth-order
+Suzuki-Trotter steps of their exponentials to its uniform arrays (tensors
+``(l, p, r)``, the ends padded with size-1 bonds); ``.pt`` gives the state
+back as a :class:`~.core.MatrixProductState`.
 
 Two paths apply a parity sweep (all even, or all odd, bonds):
 
@@ -17,9 +19,8 @@ Two paths apply a parity sweep (all even, or all odd, bonds):
 - the sequential path otherwise: each bond in turn is QR-reduced, gated
   and split by a truncated SVD, as quimb_tpu's ``gate_split`` does.
 
-Cyclic chains, ``OTOC_local``, ``LocalHam1D.build_mpo_propagator_trotterized``
-and ``TEBD.shard_onto`` need the tensor-network object layer or several
-devices and are not ported (ROADMAP queue 1, items 14 and 18).
+Cyclic chains and ``TEBD.shard_onto`` are not ported (ROADMAP queue 1,
+items 14(c) and 18).
 """
 
 import numpy as np
@@ -27,6 +28,7 @@ import torch
 
 from ...ops import decomp
 from ...ops.backend import complex_dtype, resolve_device, to_device, to_host
+from .core import _arrays_to_mps, _mps_uniform_arrays, expec_TN_1D
 from .dmrg import _right_canonize_step
 
 
@@ -133,6 +135,28 @@ class LocalHam1D:
         """Mean Frobenius norm of the terms."""
         return float(np.mean([np.linalg.norm(h)
                               for h in self.terms.values()]))
+
+    def build_mpo_propagator_trotterized(self, x, max_bond=None,
+                                         cutoff=1e-12, device=None,
+                                         **mpo_opts):
+        """The first-order Trotterized propagator ``prod_b exp(x H_b)`` as
+        an MPO on ``device`` (reference ``LocalHam1D`` propagator
+        tn1d/tebd.py:100): the even bonds' gates, then the odd ones',
+        applied to an identity MPO by reduce-split."""
+        from ..gating import tensor_network_gate_inds
+        from .builders import MPO_identity
+
+        mpo = MPO_identity(self.L, dtype=torch.complex128, device=device,
+                           **mpo_opts)
+        for parity in (0, 1):
+            for i in range(parity, self.L - 1, 2):
+                U = self.get_gate_expm((i, i + 1), x, device=device)
+                tensor_network_gate_inds(
+                    mpo, U, (mpo.upper_ind(i), mpo.upper_ind(i + 1)),
+                    contract="reduce-split", inplace=True,
+                    max_bond=max_bond, cutoff=cutoff,
+                )
+        return mpo
 
     def __repr__(self):
         return f"<LocalHam1D(L={self.L}, cyclic={self.cyclic})>"
@@ -336,7 +360,7 @@ class TEBD:
 
     Parameters
     ----------
-    p0 : list of tensors (l, p, r)
+    p0 : MatrixProductState
         Initial state (copied), e.g. from :func:`MPS_neel_state`. Its
         device runs the evolution. For real time a real state is promoted
         to the complex dtype of its precision.
@@ -364,13 +388,15 @@ class TEBD:
 
     def __init__(self, p0, H, dt=None, tol=None, t0=0.0, imag=False,
                  split_opts=None, fused=True):
-        self.L = len(p0)
+        self.L = p0.L
         self.imag = imag
-        self._dtype = p0[0].dtype
+        self._like = p0
+        arrays = _mps_uniform_arrays(p0)
+        self._dtype = arrays[0].dtype
         if not imag and not self._dtype.is_complex:
             self._dtype = complex_dtype(self._dtype)
-        self._pt = [A.to(self._dtype, copy=True) for A in p0]
-        self._device = p0[0].device
+        self._pt = [A.to(self._dtype, copy=True) for A in arrays]
+        self._device = arrays[0].device
         self.fused = fused
         self._vidal = None
         self._err_pending = []
@@ -391,18 +417,23 @@ class TEBD:
 
     @property
     def pt(self):
-        """The current state, a list of tensors (l, p, r); taken out of
-        the fused B-form, with its zero padding cut, if that is active."""
+        """The current state, a :class:`MatrixProductState` with the start
+        state's index and tag ids; taken out of the fused B-form, with its
+        zero padding cut, if that is active."""
+        return _arrays_to_mps(self._arrays(), like=self._like)
+
+    @pt.setter
+    def pt(self, value):
+        self._pt = [A.to(self._dtype) for A in _mps_uniform_arrays(value)]
+        self._vidal = None
+
+    def _arrays(self):
+        """The state's uniform arrays, out of the fused form if active."""
         self._flush_err()
         if self._vidal is not None:
             self._pt = _vidal_to_mps(*self._vidal)
             self._vidal = None
         return self._pt
-
-    @pt.setter
-    def pt(self, value):
-        self._pt = list(value)
-        self._vidal = None
 
     def _flush_err(self):
         if self._err_pending:
@@ -527,15 +558,15 @@ class TEBD:
         bond for a time ``dt_frac * dt``."""
         if self.H.cyclic:
             raise NotImplementedError(
-                "TEBD on a cyclic chain needs the tensor-network object "
-                "layer (ROADMAP queue 1, item 14)")
+                "TEBD on a cyclic chain is not ported to quimb_torch yet "
+                "(ROADMAP queue 1, item 14(c))")
         parity = {"right": 0, "left": 1}.get(direction)
         if parity is None:
             raise ValueError(f"bad direction {direction}")
         if self._fused_applicable():
             self._fused_sweep(parity, dt_frac)
             return
-        As = list(self.pt)
+        As = list(self._arrays())
         for i in range(parity, self.L - 1, 2):
             U = self._get_gates([(i, i + 1)], dt_frac * self._dt)[0]
             self._err += _gate_split(As, U, i, **self.split_opts)
@@ -591,3 +622,28 @@ class TEBD:
         for T in ts:
             self.update_to(T, dt=dt, tol=tol, order=order)
             yield self.pt
+
+
+def OTOC_local(psi0, H, H_back, ts, i, A, j=None, B=None,
+               initial_eigenstate="check", **tebd_opts):
+    """The out-of-time-ordered correlator |<A_i(t) B_j A_i(t) B_j>| at
+    each time of ``ts``, by forward and backward TEBD evolutions
+    (reference ``OTOC_local`` tn1d/tebd.py:566)."""
+    B = A if B is None else B
+    j = i if j is None else j
+
+    def evolve(psi, ham, t):
+        tebd = TEBD(psi, ham, **tebd_opts)
+        tebd.update_to(t)
+        return tebd.pt
+
+    for t in ts:
+        # A_i(t)|psi>: forward, A_i, backward
+        psi_x = evolve(evolve(psi0, H, t).gate(A, i, contract=True),
+                       H_back, t)
+        xBx = psi_x.gate(B, j, contract=True)
+        # A_i(t) B_j |psi>
+        yB = psi0.gate(B, j, contract=True)
+        psi_z = evolve(evolve(yB, H, t).gate(A, i, contract=True),
+                       H_back, t)
+        yield abs(complex(expec_TN_1D(xBx.H, psi_z)))

@@ -34,6 +34,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import quimb_torch  # noqa: E402
 from quimb_torch.ops import contraction as C  # noqa: E402
+from quimb_torch.tensor.tn1d.core import _mpo_uniform_arrays  # noqa: E402
 
 L, CHI = 128, 256
 DEVICE = "cuda"
@@ -72,7 +73,8 @@ def left_canonical_mps(seed=7):
 
 def networks():
     As = left_canonical_mps()
-    Ws = quimb_torch.MPO_ham_heis(L, dtype=torch.float64, device=DEVICE)
+    Ws = _mpo_uniform_arrays(
+        quimb_torch.MPO_ham_heis(L, dtype=torch.float64, device=DEVICE))
     Tensor, TensorNetwork = quimb_torch.Tensor, quimb_torch.TensorNetwork
     ket = TensorNetwork([
         Tensor(A, inds=(f"k{i}", f"p{i}", f"k{i + 1}"),

@@ -320,5 +320,9 @@ def test_matrix_product_state_matches():
                   np.asarray(j.contract(slice(0, L)).data))
     r = t.reindex_sites("q{}")
     assert r.site_ind(3) == "q3" and "q3" in r.ind_map
-    with pytest.raises(NotImplementedError, match="14"):
-        MatrixProductState(arrays, cyclic=True)
+    # a cyclic chain: every site has both bonds, the wrap bond closes it
+    ring = [rng.standard_normal((chi, chi, 2)) for _ in range(L)]
+    tr = MatrixProductState([torch.as_tensor(a) for a in ring], cyclic=True)
+    jr = jtn.MatrixProductState(ring, cyclic=True)
+    assert tr.cyclic and jr.cyclic
+    assert _close(_np(tr.to_dense()), np.asarray(jr.to_dense()))

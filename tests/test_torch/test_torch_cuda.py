@@ -110,6 +110,13 @@ def test_kernel_rejects(cuda):
         ck.sandwich_matvec(a, th.cpu(), b)
 
 
+def _on(tn, device):
+    """A copy of the network ``tn`` with its arrays on ``device``."""
+    tn = tn.copy()
+    tn.apply_to_arrays(lambda a: a.to(device))
+    return tn
+
+
 def _dmrg2(H, p0, bond_dims, split="svd"):
     """DMRG2 with one split on every device: the card's default is the
     subspace split, the CPU's the SVD."""
@@ -383,9 +390,8 @@ def test_parallel_dmrg_matches_cpu(cuda, monkeypatch):
     dmrg.sweep("R", max_bond=8, cutoff=1e-10)
     energies = {}
     for device in ("cpu", cuda):
-        pd = ParallelDMRG([A.to(device) for A in dmrg.state],
-                          [W.to(device) for W in H], max_bond=24,
-                          n_segments=2)
+        pd = ParallelDMRG(_on(dmrg.state, device), _on(H, device),
+                          max_bond=24, n_segments=2)
         before = dict(ck.LAUNCHES)
         energies[str(device)] = [pd.sweep() for _ in range(4)]
         if device == cuda:
@@ -434,11 +440,11 @@ def test_tebd_quench_matches_cpu(cuda, dtype, tol):
 
 def test_entry_points_default_to_the_card(cuda):
     """With no device, every builder puts its tensors on the card."""
-    for tensors in (quimb_torch.MPS_rand_state(8, 4),
-                    quimb_torch.MPO_ham_heis(8),
-                    quimb_torch.MPS_computational_state("01" * 4),
-                    quimb_torch.MPS_neel_state(8)):
-        assert all(t.is_cuda for t in tensors)
+    for tn in (quimb_torch.MPS_rand_state(8, 4),
+               quimb_torch.MPO_ham_heis(8),
+               quimb_torch.MPS_computational_state("01" * 4),
+               quimb_torch.MPS_neel_state(8)):
+        assert all(t.data.is_cuda for t in tn)
 
 
 # -- the tensor-network object layer on the card --------------------------------
@@ -581,3 +587,67 @@ def test_circuit_on_card_matches_cpu(cuda, route, monkeypatch):
     assert rel.item() <= 1e-12 * torch.linalg.norm(rho).item()
     assert list(card.sample(8, seed=42, group_size=5)) == \
         list(cpu.sample(8, seed=42, group_size=5))
+
+
+# -- the MPS / MPO object layer on the card -----------------------------------
+
+
+def test_mps_stays_on_the_card(cuda):
+    """An MPS built on the card stays there through canonize, compress,
+    an MPO's apply and sampling, and gives the CPU copy's values."""
+    from quimb_torch.tensor.tn1d.core import expec_TN_1D
+
+    psi = quimb_torch.MPS_rand_state(12, 8, seed=5, device=cuda)
+    H = quimb_torch.MPO_ham_heis(12, device=cuda)
+    cpu = _on(psi, "cpu")
+    psi.canonize(6)
+    assert all(t.data.is_cuda for t in psi)
+    Hpsi = H.apply(psi)
+    assert all(t.data.is_cuda for t in Hpsi)
+    assert max(Hpsi.bond_sizes()) == 40
+    Hpsi.compress(max_bond=8, cutoff=0.0)
+    assert all(t.data.is_cuda for t in Hpsi)
+    assert max(Hpsi.bond_sizes()) == 8
+    samples = list(psi.sample(3, seed=1))
+    want = list(cpu.sample(3, seed=1))
+    assert [c for c, _ in samples] == [c for c, _ in want]
+    # float64 probabilities summed in other orders
+    np.testing.assert_allclose([w for _, w in samples],
+                               [w for _, w in want], rtol=1e-12)
+    # float64 sums in other orders
+    e = expec_TN_1D(psi.H, Hpsi)
+    assert e.is_cuda
+    e_cpu = expec_TN_1D(cpu.H, _on(H, "cpu").apply(cpu).compress(
+        max_bond=8, cutoff=0.0))
+    assert abs(e.item() - e_cpu.item()) < 1e-10 * abs(e_cpu.item())
+
+
+def test_circuit_mps_defaults_to_the_card(cuda):
+    """``CircuitMPS`` with no device puts its state on the card, and its
+    amplitudes are the CPU circuit's."""
+    from quimb_torch.tensor import CircuitMPS
+
+    circ = CircuitMPS(4)
+    cpu = CircuitMPS(4, device="cpu")
+    for c in (circ, cpu):
+        c.apply_gate("H", 0)
+        c.apply_gate("CNOT", 0, 1)
+        c.apply_gate("CNOT", 1, 3)
+    assert circ.device.type == "cuda"
+    assert all(t.data.is_cuda for t in circ.psi)
+    for b in ("0000", "1101"):
+        assert abs(circ.amplitude(b) - cpu.amplitude(b)) < 1e-14
+
+
+def test_dmrg2_from_objects_launches_the_kernel(cuda):
+    """DMRG2 built from an MPO and an MPS object on the card launches the
+    float64 sandwich kernel, and its ``.state`` is an MPS on the card."""
+    H = quimb_torch.MPO_ham_heis(10, device=cuda)
+    p0 = quimb_torch.MPS_rand_state(10, 8, seed=4, device=cuda)
+    dmrg = quimb_torch.DMRG2(H, bond_dims=8, cutoffs=0.0, p0=p0)
+    before = ck.LAUNCHES["sandwich_f64"]
+    dmrg.sweep("R", max_bond=8, cutoff=0.0)
+    assert ck.LAUNCHES["sandwich_f64"] - before >= 8 * 9
+    state = dmrg.state
+    assert isinstance(state, quimb_torch.MatrixProductState)
+    assert all(t.data.is_cuda for t in state)

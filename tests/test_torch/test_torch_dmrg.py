@@ -12,7 +12,7 @@ import quimb_tpu.tensor as qtn
 import quimb_torch
 from __graft_entry__ import entry
 from quimb_tpu.tensor.tn1d import dmrg as jd
-from quimb_torch.convert import from_tpu_arrays, to_numpy
+from quimb_torch.convert import from_tpu_mpo, from_tpu_mps, to_numpy
 from quimb_torch.tensor.tn1d import dmrg as td
 
 # exact ground energy of the open spin-1/2 Heisenberg chain of 10 sites
@@ -32,7 +32,8 @@ def _t(*xs):
 ])
 def test_mpo_ham_heis_matches(L, kw):
     want = jd._mpo_uniform_arrays(qtn.MPO_ham_heis(L, **kw))
-    got = quimb_torch.MPO_ham_heis(L, **kw, device="cpu")
+    got = td._mpo_uniform_arrays(quimb_torch.MPO_ham_heis(L, **kw,
+                                                        device="cpu"))
     assert len(got) == L
     for g, w in zip(to_numpy(got), want):
         w = np.asarray(w)
@@ -43,11 +44,12 @@ def test_mpo_ham_heis_matches(L, kw):
 def test_mps_rand_state():
     L, chi = 14, 8
     want = jd._mps_uniform_arrays(qtn.MPS_rand_state(L, chi, seed=1))
-    got = quimb_torch.MPS_rand_state(L, chi, seed=1, device="cpu")
+    got = td._mps_uniform_arrays(
+        quimb_torch.MPS_rand_state(L, chi, seed=1, device="cpu"))
     assert [tuple(g.shape) for g in got] == [w.shape for w in want]
     assert all(g.dtype == torch.float64 for g in got)
-    for g, h in zip(got, quimb_torch.MPS_rand_state(L, chi, seed=1,
-                                                      device="cpu")):
+    for g, h in zip(got, td._mps_uniform_arrays(
+            quimb_torch.MPS_rand_state(L, chi, seed=1, device="cpu"))):
         assert torch.equal(g, h)
     nrm = np.ones((1, 1))
     for A in to_numpy(got):
@@ -62,7 +64,8 @@ def test_mps_rand_state_matches_the_three_operand_normalisation():
     import math
 
     L, chi = 8, 8
-    got = to_numpy(quimb_torch.MPS_rand_state(L, chi, seed=3, device="cpu"))
+    got = to_numpy(td._mps_uniform_arrays(
+        quimb_torch.MPS_rand_state(L, chi, seed=3, device="cpu")))
     rng = np.random.default_rng(3)
     arrays = [rng.standard_normal((min(chi, 2**i, 2 ** (L - i)), 2,
                                    min(chi, 2 ** (i + 1), 2 ** (L - i - 1))))
@@ -80,8 +83,8 @@ def test_mps_rand_state_matches_the_three_operand_normalisation():
 def test_mps_rand_state_long_chain_float32():
     """128 sites of random tensors span hundreds of decades of norm; the
     log-space normalisation keeps every float32 tensor finite."""
-    As = quimb_torch.MPS_rand_state(128, 32, seed=42, dtype=torch.float32,
-                                    device="cpu")
+    As = td._mps_uniform_arrays(quimb_torch.MPS_rand_state(
+        128, 32, seed=42, dtype=torch.float32, device="cpu"))
     assert all(bool(torch.isfinite(A).all()) for A in As)
     nrm = np.ones((1, 1))
     for A in to_numpy(As):
@@ -129,7 +132,7 @@ def test_right_canonize_step():
 
 
 def test_mpo_identity_channels():
-    H = quimb_torch.MPO_ham_heis(6, device="cpu")
+    H = td._mpo_uniform_arrays(quimb_torch.MPO_ham_heis(6, device="cpu"))
     assert td._mpo_has_identity_channels(H)
     assert td._mpo_has_identity_channels(H) == \
         jd._mpo_has_identity_channels(
@@ -188,9 +191,9 @@ def _both_engines(L, chi, seed):
     H = qtn.MPO_ham_heis(L)
     p0 = qtn.MPS_rand_state(L, chi, seed=seed)
     jdmrg = qtn.DMRG2(H, bond_dims=chi, cutoffs=0.0, p0=p0)
-    Ws, As = from_tpu_arrays(jd._mpo_uniform_arrays(H),
-                             jd._mps_uniform_arrays(p0), device="cpu")
-    tdmrg = quimb_torch.DMRG2(Ws, bond_dims=chi, cutoffs=0.0, p0=As)
+    tdmrg = quimb_torch.DMRG2(from_tpu_mpo(H, device="cpu"), bond_dims=chi,
+                              cutoffs=0.0,
+                              p0=from_tpu_mps(p0, device="cpu"))
     return jdmrg, tdmrg
 
 
@@ -230,14 +233,14 @@ def test_solve_matches():
     assert jdmrg.solve(**kw) == tdmrg.solve(**kw)
     np.testing.assert_allclose(tdmrg.energies, jdmrg.energies, atol=1e-9)
     assert abs(tdmrg.energy - E_EXACT_L10) < 1e-8
-    assert [tuple(A.shape) for A in tdmrg.state] == \
-        [jdmrg._A[i].shape for i in range(10)]
+    assert [tuple(A.shape) for A in td._mps_uniform_arrays(tdmrg.state)] \
+        == [jdmrg._A[i].shape for i in range(10)]
 
 
 def test_default_start_state():
     H = quimb_torch.MPO_ham_heis(8, dtype=torch.float32, device="cpu")
     dmrg = quimb_torch.DMRG2(H, bond_dims=4)
-    assert all(A.dtype == torch.float32 for A in dmrg.state)
+    assert all(t.dtype == torch.float32 for t in dmrg.state)
     assert dmrg.energy is None
     en = dmrg.sweep("R", max_bond=4, cutoff=0.0)
     assert np.isfinite(en)

@@ -8,7 +8,7 @@ import torch
 
 import quimb_tpu.tensor as qtn
 import quimb_torch
-from quimb_torch.convert import from_tpu_arrays
+from quimb_torch.convert import from_tpu_mpo, from_tpu_mps
 from quimb_torch.ops import cuda_kernels as ck
 from quimb_torch.ops import decomp as tdecomp
 from quimb_tpu.tensor.tn1d import dmrg as jd
@@ -97,9 +97,8 @@ def _dmrg1_pair(H, psi, chi, ncv=4):
     energies (far below the ground energy). The port caps the basis at
     the space's dimension; at 4 both run the same algorithm."""
     jdmrg = qtn.DMRG1(H, bond_dims=chi, cutoffs=0.0, p0=psi)
-    Ws, As = from_tpu_arrays(jd._mpo_uniform_arrays(H),
-                             jd._mps_uniform_arrays(psi), device="cpu")
-    tdmrg = quimb_torch.DMRG1(Ws, bond_dims=chi, cutoffs=0.0, p0=As)
+    tdmrg = quimb_torch.DMRG1(from_tpu_mpo(H, device="cpu"), bond_dims=chi,
+                              cutoffs=0.0, p0=from_tpu_mps(psi, device="cpu"))
     for dmrg in (jdmrg, tdmrg):
         dmrg.opts["local_eig_ncv"] = ncv // 2
         dmrg.opts["local_eig_ncv_floor"] = ncv
@@ -123,8 +122,8 @@ def test_dmrg1_sweeps(L, chi, sweeps):
         # of the factorizations does not reach the energies
         assert abs(t_en - j_en) < 1e-9
         assert len(tdmrg.local_energies[-1]) == L
-    assert [tuple(A.shape) for A in tdmrg.state] == \
-        [jdmrg._A[i].shape for i in range(L)]
+    assert [tuple(A.shape) for A in td._mps_uniform_arrays(tdmrg.state)] \
+        == [jdmrg._A[i].shape for i in range(L)]
     if L == 10:
         assert abs(t_en - E_EXACT_L10) < 1e-8
 
@@ -135,9 +134,8 @@ def test_dmrg1_default_basis_stays_variational():
     converged L=10 state's exact energy: no sweep energy falls below the
     ground energy."""
     H, psi = _dmrg2_state(10, 32, seed=7, sweeps=4)
-    Ws, As = from_tpu_arrays(jd._mpo_uniform_arrays(H),
-                             jd._mps_uniform_arrays(psi), device="cpu")
-    dmrg = quimb_torch.DMRG1(Ws, bond_dims=32, cutoffs=0.0, p0=As)
+    dmrg = quimb_torch.DMRG1(from_tpu_mpo(H, device="cpu"), bond_dims=32,
+                             cutoffs=0.0, p0=from_tpu_mps(psi, device="cpu"))
     for direction, canonize in [("R", True), ("L", False), ("R", False)]:
         en = dmrg.sweep(direction, max_bond=32, cutoff=0.0,
                         canonize=canonize)
@@ -188,9 +186,8 @@ def _dmrg2_pair(L, chi, seed, method):
     H = qtn.MPO_ham_heis(L)
     p0 = qtn.MPS_rand_state(L, chi, seed=seed)
     jdmrg = qtn.DMRG2(H, bond_dims=chi, cutoffs=0.0, p0=p0)
-    Ws, As = from_tpu_arrays(jd._mpo_uniform_arrays(H),
-                             jd._mps_uniform_arrays(p0), device="cpu")
-    tdmrg = quimb_torch.DMRG2(Ws, bond_dims=chi, cutoffs=0.0, p0=As)
+    tdmrg = quimb_torch.DMRG2(from_tpu_mpo(H, device="cpu"), bond_dims=chi,
+                              cutoffs=0.0, p0=from_tpu_mps(p0, device="cpu"))
     for dmrg in (jdmrg, tdmrg):
         dmrg.opts["bond_compress_method"] = method
     return jdmrg, tdmrg

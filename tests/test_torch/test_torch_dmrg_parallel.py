@@ -19,12 +19,13 @@ import torch
 import quimb_tpu as q
 import quimb_tpu.tensor as qtn
 import quimb_torch
-from quimb_torch.convert import from_tpu_arrays
+from quimb_torch.convert import from_tpu_mpo, from_tpu_mps
 from quimb_torch.ops import cuda_kernels as ck
 from quimb_torch.ops import decomp as tdecomp
 from quimb_tpu.tensor.tn1d import dmrg as jd
 from quimb_tpu.tensor.tn1d import dmrg_jacobi as jj
 from quimb_tpu.tensor.tn1d import dmrg_parallel as jp
+from quimb_torch.tensor.tn1d import core as tc
 from quimb_torch.tensor.tn1d import dmrg_jacobi as tj
 from quimb_torch.tensor.tn1d import dmrg_parallel as tp
 
@@ -54,16 +55,30 @@ def _converged(L, chi):
     return H, dmrg
 
 
-def _port_arrays(H, psi):
-    return from_tpu_arrays(jd._mpo_uniform_arrays(H),
-                           jd._mps_uniform_arrays(psi), device="cpu")
+def _port_objects(H, psi):
+    """quimb_tpu's MPO and MPS carried across: (the port's MPO, MPS)."""
+    return from_tpu_mpo(H, device="cpu"), from_tpu_mps(psi, device="cpu")
 
 
-def _host_energy(As, Ws):
-    """⟨ψ|H|ψ⟩/⟨ψ|ψ⟩ of the site tensors As under the MPO Ws, in float64
+def _uniform(x):
+    """The uniform site arrays of an MPS or MPO of either package, or a
+    list of them as it is."""
+    if isinstance(x, tc.MatrixProductState):
+        return tc._mps_uniform_arrays(x)
+    if isinstance(x, tc.MatrixProductOperator):
+        return tc._mpo_uniform_arrays(x)
+    if isinstance(x, qtn.MatrixProductState):
+        return jd._mps_uniform_arrays(x)
+    if isinstance(x, qtn.MatrixProductOperator):
+        return jd._mpo_uniform_arrays(x)
+    return x
+
+
+def _host_energy(psi, H):
+    """⟨ψ|H|ψ⟩/⟨ψ|ψ⟩ of the state psi under the MPO H, in float64
     numpy."""
     env, nrm = np.ones((1, 1, 1)), np.ones((1, 1))
-    for A, W in zip(As, Ws):
+    for A, W in zip(_uniform(psi), _uniform(H)):
         A, W = _np(A), _np(W)
         env = np.einsum("bwk,kdx,wyud,bua->ayx", env, A, W, A.conj(),
                         optimize=True)
@@ -76,11 +91,12 @@ def _exact_e(L):
 
 
 def _random_stack(L, chi, seed):
-    """A random state padded to chi: (quimb_tpu stack, port stack)."""
-    As = quimb_torch.MPS_rand_state(L, chi, seed=seed, dtype=torch.float64,
-                                    device="cpu")
-    Ms = tj.mps_to_stack(As, chi)
-    return jnp.asarray(Ms.numpy()), Ms
+    """A random state padded to chi: (quimb_tpu stack, port stack, the
+    state)."""
+    psi = quimb_torch.MPS_rand_state(L, chi, seed=seed, dtype=torch.float64,
+                                     device="cpu")
+    Ms = tj.mps_to_stack(psi, chi)
+    return jnp.asarray(Ms.numpy()), Ms, psi
 
 
 # -- stacks and masks ----------------------------------------------------------
@@ -97,15 +113,17 @@ def test_bond_rank_masks(L, chi, d):
 def test_stack_converters():
     H, dmrg = _converged(10, 16)
     psi = dmrg.state
-    Ws, As = _port_arrays(H, psi)
+    tH, tpsi = _port_objects(H, psi)
     # a stack wider than the state's bonds: the padding is trimmed
-    Ms = tj.mps_to_stack(As, 20)
+    Ms = tj.mps_to_stack(tpsi, 20)
     np.testing.assert_array_equal(Ms.numpy(), np.asarray(jj.mps_to_stack(psi,
                                                                         20)))
-    np.testing.assert_array_equal(tj.mpo_to_padded_stack(Ws).numpy(),
+    np.testing.assert_array_equal(tj.mpo_to_padded_stack(tH).numpy(),
                                   jj.mpo_to_padded_stack(H))
-    back = tj.stack_to_mps(Ms)
-    for A, B in zip(back, As):
+    back = tj.stack_to_mps(Ms, tpsi)
+    assert isinstance(back, tc.MatrixProductState)
+    assert back.site_tags == tpsi.site_tags
+    for A, B in zip(_uniform(back), _uniform(tpsi)):
         np.testing.assert_array_equal(A.numpy(), B.numpy())
     # quimb_tpu's rule on a stack with a dead inner column: the bond keeps
     # as many columns as are alive, counted from the first
@@ -113,12 +131,12 @@ def test_stack_converters():
     Ms[5, 1] = 0.0
     want = jd._mps_uniform_arrays(jj.stack_to_mps(jnp.asarray(Ms.numpy()),
                                                   psi))
-    got = tj.stack_to_mps(Ms)
+    got = _uniform(tj.stack_to_mps(Ms, tpsi))
     assert [tuple(A.shape) for A in got] == [A.shape for A in want]
     for A, B in zip(got, want):
         np.testing.assert_array_equal(A.numpy(), np.asarray(B))
     with pytest.raises(ValueError):
-        tj.mps_to_stack(As, 8)
+        tj.mps_to_stack(tpsi, 8)
 
 
 def test_batched_tridiag_eigvec():
@@ -140,7 +158,7 @@ def test_canonize_passes():
     """Both passes on one random state (full rank at every bond, so the
     sign-fixed QR and LQ are unique and well conditioned)."""
     L, chi = 12, 16
-    jMs, tMs = _random_stack(L, chi, seed=31)
+    jMs, tMs, tpsi = _random_stack(L, chi, seed=31)
     H = qtn.MPO_ham_heis(L)
     jWs = jj.mpo_to_padded_stack(H)
     tWs = torch.from_numpy(jWs)
@@ -155,7 +173,7 @@ def test_canonize_passes():
         assert t.shape == j.shape and _rel(t, j) < TOL
     # the passes' environments and the gauge between them give the
     # state's energy at every bond
-    e = _host_energy(tj.stack_to_mps(tMs),
+    e = _host_energy(tj.stack_to_mps(tMs, tpsi),
                      quimb_torch.MPO_ham_heis(L, dtype=torch.float64,
                                               device="cpu"))
     for j in range(L - 1):
@@ -280,26 +298,25 @@ def test_parallel_sweeps_match_quimb_tpu(monkeypatch):
     seed = qtn.DMRG2(H, bond_dims=[8], cutoffs=1e-10,
                      p0=qtn.MPS_rand_state(L, 8, seed=35))
     seed.sweep("R", max_bond=8, cutoff=1e-10)
-    Ws, As = _port_arrays(H, seed.state)
+    tH, tpsi = _port_objects(H, seed.state)
     jpd = jp.ParallelDMRG(seed.state, H, max_bond=chi, n_segments=2)
-    tpd = tp.ParallelDMRG(As, Ws, max_bond=chi, n_segments=2)
+    tpd = tp.ParallelDMRG(tpsi, tH, max_bond=chi, n_segments=2)
     for _ in range(4):
         j_en, t_en = jpd.sweep(), tpd.sweep()
         # float64 sweeps of 21 batched solves and splits each from one
         # state and one random start: round-off, amplified a little by
         # the sweeps
         assert abs(t_en - j_en) < 1e-8
-    want = _host_energy(jd._mps_uniform_arrays(jpd.get_state()),
-                        jd._mpo_uniform_arrays(H))
-    assert abs(_host_energy(tpd.get_state(), Ws) - want) < 1e-8
+    want = _host_energy(jpd.get_state(), H)
+    assert abs(_host_energy(tpd.get_state(), tH) - want) < 1e-8
 
 
 def test_whole_chain_segment_matches_sequential():
     """S=1 is a fixed-boundary sweep of the whole chain."""
     L = 8
     H, dmrg = _converged(L, 12)
-    Ws, As = _port_arrays(H, dmrg.state)
-    pd = tp.ParallelDMRG(As, Ws, max_bond=12, n_segments=1)
+    tH, tpsi = _port_objects(H, dmrg.state)
+    pd = tp.ParallelDMRG(tpsi, tH, max_bond=12, n_segments=1)
     assert pd.sweep() == pytest.approx(_exact_e(L), abs=1e-5)
 
 
@@ -308,11 +325,11 @@ def test_fixed_point_stability():
     parallel updates diverge within a few sweeps)."""
     L = 16
     H, dmrg = _converged(L, 24)
-    Ws, As = _port_arrays(H, dmrg.state)
-    pd = tp.ParallelDMRG(As, Ws, max_bond=24, n_segments=2)
+    tH, tpsi = _port_objects(H, dmrg.state)
+    pd = tp.ParallelDMRG(tpsi, tH, max_bond=24, n_segments=2)
     for _ in range(30):
         pd.sweep()
-    assert _host_energy(pd.get_state(), Ws) == pytest.approx(
+    assert _host_energy(pd.get_state(), tH) == pytest.approx(
         float(dmrg.energy), abs=1e-6)
 
 
@@ -336,11 +353,11 @@ def test_converges_from_rough_seed():
 def test_inner_passes_and_checks():
     L = 16
     H, dmrg = _converged(L, 24)
-    Ws, As = _port_arrays(H, dmrg.state)
-    pd = tp.ParallelDMRG(As, Ws, max_bond=24, n_segments=2, inner_passes=2)
+    tH, tpsi = _port_objects(H, dmrg.state)
+    pd = tp.ParallelDMRG(tpsi, tH, max_bond=24, n_segments=2, inner_passes=2)
     for _ in range(4):
         en = pd.sweep()
     assert en == pytest.approx(float(dmrg.energy), abs=1e-6)
     assert len(pd.energies) == 4
     with pytest.raises(ValueError):
-        tp.ParallelDMRG(As, Ws, max_bond=24, n_segments=3)
+        tp.ParallelDMRG(tpsi, tH, max_bond=24, n_segments=3)

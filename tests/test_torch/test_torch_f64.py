@@ -19,7 +19,7 @@ import quimb_tpu.tensor as qtn
 import quimb_torch
 from quimb_tpu.ops import pallas_kernels as pk
 from quimb_tpu.tensor.tn1d import dmrg as jd
-from quimb_torch.convert import from_tpu_arrays
+from quimb_torch.convert import from_tpu_mpo, from_tpu_mps
 from quimb_torch.ops import cuda_kernels as ck
 from quimb_torch.tensor.tn1d import dmrg as td
 
@@ -125,11 +125,10 @@ def test_f64_sweep_prepares_once_per_bond():
     H = qtn.MPO_ham_heis(L)
     p0 = qtn.MPS_rand_state(L, chi, seed=9)
     jdmrg = qtn.DMRG2(H, bond_dims=chi, cutoffs=0.0, p0=p0)
-    Ws, As = from_tpu_arrays(jd._mpo_uniform_arrays(H),
-                             jd._mps_uniform_arrays(p0), device="cpu")
-    tdmrg = quimb_torch.DMRG2(Ws, bond_dims=chi, cutoffs=0.0, p0=As)
+    tdmrg = quimb_torch.DMRG2(from_tpu_mpo(H, device="cpu"), bond_dims=chi,
+                              cutoffs=0.0, p0=from_tpu_mps(p0, device="cpu"))
     assert tdmrg._sandwich is ck.prepare_sandwich_reference
-    assert all(A.dtype == torch.float64 for A in tdmrg.state)
+    assert all(t.dtype == torch.float64 for t in tdmrg.state)
     calls = {"prepare": 0, "apply": 0}
     resolved = tdmrg._sandwich
 

@@ -255,8 +255,12 @@ def test_gate_build_array_with_controls_matches():
         t = tgates.Gate(label, params, (1,), controls=(0, 2))
         j = jgates.Gate(label, params, (1,), controls=(0, 2))
         np.testing.assert_array_equal(t.build_array(), j.build_array())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tgates.Gate("CZ", (), (0, 1)).build_mpo()
+    # build_mpo is ported: the controlled gate's MPO is quimb_tpu's
+    t = tgates.Gate("RX", (0.3,), (1,), controls=(0, 2))
+    j = jgates.Gate("RX", (0.3,), (1,), controls=(0, 2))
+    np.testing.assert_allclose(
+        t.build_mpo(device="cpu").to_dense().numpy(),
+        np.asarray(j.build_mpo().to_dense()), rtol=0, atol=1e-14)
 
 
 @pytest.mark.parametrize("kind,name", [

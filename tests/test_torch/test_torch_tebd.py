@@ -16,15 +16,26 @@ import torch
 import quimb_tpu.tensor as qtn
 import quimb_torch
 from quimb_torch.convert import from_tpu_mps
-from quimb_tpu.tensor.tn1d import dmrg as jd
 from quimb_tpu.tensor.tn1d import tebd as jt
+from quimb_torch.tensor.tn1d import core as tc
 from quimb_torch.tensor.tn1d import tebd as tt
 
 CPU = "cpu"
 
 
-def _dense(As):
-    """The state vector of a list state (l, p, r)."""
+def _arrays(x):
+    """The uniform site arrays of the port's MPS or MPO, or a list of
+    tensors as it is."""
+    if isinstance(x, tc.MatrixProductState):
+        return tc._mps_uniform_arrays(x)
+    if isinstance(x, tc.MatrixProductOperator):
+        return tc._mpo_uniform_arrays(x)
+    return x
+
+
+def _dense(psi):
+    """The state vector of an MPS or a list state (l, p, r)."""
+    As = _arrays(psi)
     v = torch.ones((1, 1), dtype=As[0].dtype)
     for A in As:
         v = torch.einsum("ab,bpc->apc", v, A).reshape(-1, A.shape[2])
@@ -45,13 +56,13 @@ def _dense_ham(H):
     return out
 
 
-def _host_energy(As, Ws):
-    """⟨ψ|H|ψ⟩ / ⟨ψ|ψ⟩ of a list state with MPO tensors (wl, wr, u, d), in
-    complex128 numpy (``host_f64_energy`` of chip_smoke.py, for complex
-    states)."""
+def _host_energy(psi, H):
+    """⟨ψ|H|ψ⟩ / ⟨ψ|ψ⟩ of an MPS under an MPO, by their uniform arrays
+    (l, p, r) and (wl, wr, u, d), in complex128 numpy (``host_f64_energy``
+    of chip_smoke.py, for complex states)."""
     env = np.ones((1, 1, 1))
     nrm = np.ones((1, 1))
-    for A, W in zip(As, Ws):
+    for A, W in zip(_arrays(psi), _arrays(H)):
         A = A.numpy().astype(np.complex128)
         W = W.numpy()
         env = np.einsum("bwk,kdx->bwdx", env, A)
@@ -104,8 +115,9 @@ def test_local_ham_terms_match(name, kw):
 def test_product_states_match(build):
     want = np.asarray(build(qtn).to_dense()).ravel()
     got = build(quimb_torch, device=CPU)
-    assert all(A.shape[0] == A.shape[2] == 1 for A in got)
-    assert got[0].dtype == torch.float64
+    assert isinstance(got, tc.MatrixProductState)
+    assert all(A.shape[0] == A.shape[2] == 1 for A in _arrays(got))
+    assert got.dtype == torch.float64
     np.testing.assert_array_equal(_dense(got), want)
 
 
@@ -116,8 +128,13 @@ def test_cyclic_chain_is_not_ported():
                             split_opts={"max_bond": 8})
     with pytest.raises(NotImplementedError, match="item 14"):
         tebd.update_to(0.1, dt=0.05)
+    # the ring's MPO is ported: DMRG runs it in its open form, and only
+    # the segmented ring engine raises
+    H = quimb_torch.MPO_ham_heis(6, cyclic=True, device=CPU)
+    assert H.cyclic
     with pytest.raises(NotImplementedError, match="item 14"):
-        quimb_torch.SpinHam1D(cyclic=True).build_mpo(6, device=CPU)
+        quimb_torch.DMRG2(H, cyclic_mode="segmented")
+    assert not quimb_torch.DMRG2(H, cyclic_mode="obc").ham.cyclic
 
 
 @pytest.mark.parametrize("build", [
@@ -125,14 +142,17 @@ def test_cyclic_chain_is_not_ported():
     lambda: quimb_torch.MPO_ham_heis(8),
     lambda: quimb_torch.MPS_computational_state("01" * 4),
     lambda: quimb_torch.MPS_neel_state(8),
-    lambda: from_tpu_mps([np.ones((1, 2, 1))]),
+    lambda: from_tpu_mps(qtn.MPS_computational_state("01")),
     lambda: [quimb_torch.ham_1d_heis(4).get_gate_expm((0, 1), -0.1j)],
 ])
 def test_entry_points_default_to_the_gpu(build):
     """With no ``device``, the tensors go to the GPU; with no GPU the call
     raises rather than falling back to the CPU."""
     if torch.cuda.is_available():
-        assert all(t.is_cuda for t in build())
+        out = build()
+        leaves = [t.data for t in out] if hasattr(out, "tensor_map") \
+            else out
+        assert all(t.is_cuda for t in leaves)
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
@@ -197,9 +217,8 @@ def test_mps_to_vidal():
     L, chi = 8, 6
     psi = qtn.MPS_rand_state(L, 4, seed=42)
     jBs, jls = (np.asarray(x) for x in jt._mps_to_vidal(psi, chi))
-    Bs, ls = tt._mps_to_vidal(
-        from_tpu_mps(jd._mps_uniform_arrays(psi), device=CPU,
-                     dtype=torch.complex128), chi)
+    Bs, ls = tt._mps_to_vidal(_arrays(
+        from_tpu_mps(psi, device=CPU, dtype=torch.complex128)), chi)
     assert Bs.dtype == torch.complex128 and ls.dtype == torch.float64
     # one LQ sweep and one SVD sweep of bond 4 in float64
     np.testing.assert_allclose(ls.numpy(), jls, rtol=0, atol=1e-12)
@@ -217,8 +236,8 @@ def test_vidal_bonds_in_the_basis_of_their_weights():
     left environment of every bond is diag(ls^2). (quimb_tpu's keeps the
     right-canonical tensors as they are: correct only for product
     states.)"""
-    psi = from_tpu_mps(jd._mps_uniform_arrays(qtn.MPS_rand_state(
-        8, 4, seed=43)), device=CPU)
+    psi = _arrays(from_tpu_mps(qtn.MPS_rand_state(8, 4, seed=43),
+                               device=CPU))
     Bs, ls = tt._mps_to_vidal(psi, 6)
     env = torch.zeros((6, 6), dtype=Bs.dtype)
     env[0, 0] = 1
@@ -236,8 +255,7 @@ def _pair(L, dtype, split_opts, imag=False, fused=True, start=None):
     jdtype, tdtype = {"float64": ("float64", torch.float64),
                       "float32": ("float32", torch.float32)}[dtype]
     jpsi = start or qtn.MPS_neel_state(L, dtype=jdtype)
-    tpsi = from_tpu_mps(jd._mps_uniform_arrays(jpsi), device=CPU,
-                        dtype=tdtype)
+    tpsi = from_tpu_mps(jpsi, device=CPU, dtype=tdtype)
     j = qtn.TEBD(jpsi, qtn.ham_1d_heis(L), imag=imag, progbar=False,
                  split_opts=dict(split_opts), fused=fused)
     t = quimb_torch.TEBD(tpsi, quimb_torch.ham_1d_heis(L), imag=imag,
@@ -361,8 +379,7 @@ def test_imaginary_time_energy_matches():
     assert t._vidal[0].dtype == torch.float64
     Ws = quimb_torch.MPO_ham_heis(L, device=CPU)
     e_t = _host_energy(t.pt, Ws)
-    e_j = _host_energy(
-        from_tpu_mps(jd._mps_uniform_arrays(j.pt), device=CPU), Ws)
+    e_j = _host_energy(from_tpu_mps(j.pt, device=CPU), Ws)
     # two float64 runs of 20 steps: round-off in the energy
     assert e_t == pytest.approx(e_j, rel=0, abs=1e-9)
     assert e_t < -3.5
