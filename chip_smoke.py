@@ -15,8 +15,8 @@ default split (``svd:sub``, run as ``svd:sub0`` at cutoff 0), then
 ParallelDMRG from that state; DMRG2 on a float64 state, with every matvec
 in the hand-written FP64 tensor-core (DMMA) kernel, then DMRG1 from that
 state. Then the MPS / MPO object layer on that state, the TEBD quench,
-the exact 20-qubit core, and the 53-qubit circuit as a lazy network and as
-an MPS. Its phases, each fatal on failure:
+the exact 20-qubit core, the 53-qubit circuit as a lazy network and as
+an MPS, and the 16x16 PEPS. Its phases, each fatal on failure:
 
 1. the device: a CUDA GPU is required; its name and power limit are
    printed;
@@ -133,7 +133,28 @@ an MPS. Its phases, each fatal on failure:
    ``scripts/circuit53_mps_samples.py``), ``sample(20, seed=42)`` equal
    to quimb_tpu's strings; in complex64 the amplitudes within 1e-3 of
    REFBASE. Printed: ``fidelity_estimate()`` and the busy share over the
-   gates.
+   gates;
+16. the 16x16 PEPS of benchref/measure_tpu_peps16.py (the Heisenberg
+   model, D=3, chi=32), from the start arrays of
+   scripts/peps16_reference.py (``default_rng(42)``), through ``PEPS``,
+   ``ham_2d_heis`` and ``SimpleUpdate`` with no device: ``evolve(2,
+   tau=0.3)``, then 30 fused steps at each of tau = 0.3, 0.1, 0.03, in
+   float64 and in float32, then ``get_state().compute_local_expectation(
+   ham.terms, max_bond=32)`` in float64. Gated against quimb_tpu's float64
+   run of the same protocol from the same arrays (the constants and
+   scripts/peps16_reference.json, from scripts/peps16_reference.py): the
+   fused stacks on the card, the 480 gauge vectors within 1e-6, the
+   energy per site within 1e-6, ``compute_energy_simple()`` within 1e-8
+   relative; float32's ``compute_energy_simple()`` within 1e-4 relative
+   of float64's; a 4x4 ``CircuitPEPS`` of depth 4 (U3 and CZ layers from a
+   seeded stream, complex128, bond limit 64) within 1e-10 of the exact
+   ``Circuit``'s five amplitudes; no sandwich kernel launched. Printed:
+   seconds a step and host syncs a step (torch's sync debug mode), one
+   class's bond split by the batched ``gesvdj`` (the path's), ``gesvd``
+   and the matmul-only ``_topd_split`` with their accuracy, the class
+   update's QRs and the rest, the energy's seconds and peak allocation,
+   the busy share over a window of its environments, and the two
+   artifacts' energies per site beside the result (not gated).
 
 The line before the last is the kernels' JSON summary, one entry per
 kernel with its launches on its paths (DMRG2 and ParallelDMRG for
@@ -141,8 +162,8 @@ float32, DMRG2 and DMRG1 for float64; TEBD runs no hand-written kernel),
 its time against the plain einsum (the one library call that computes
 the same product) and its bound. The exact core runs no hand-written
 kernel: its matvec is plain PyTorch, measured in phase 11; nor do the
-circuit and the MPS layer: quimb_tpu's have no Pallas kernel, and their
-products run as batched ``matmul`` on the card. The last line is
+circuit, the MPS layer and the PEPS: quimb_tpu's have no Pallas kernel,
+and their products run as batched ``matmul``, QR and SVD on the card. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -163,9 +184,10 @@ from quimb_torch import core
 from quimb_torch.ops import _build
 from quimb_torch.ops import cuda_kernels as ck
 from quimb_torch.ops import decomp
-from quimb_torch.ops.backend import to_host
+from quimb_torch.ops.backend import numpy_dtype, to_host
 from quimb_torch.tensor.tn1d import dmrg as D
 from quimb_torch.tensor.tn1d.dmrg_parallel import ParallelDMRG
+from quimb_torch.tensor.tn2d import su_fused
 
 L, CHI, P0_BOND, SEED = 128, 256, 32, 42
 R_SCHEDULE = (64, 128, 256, 256, 256)
@@ -1926,6 +1948,314 @@ def run_circuit_mps_path():
           flush=True)
 
 
+# -- phase 16: the 16x16 PEPS -------------------------------------------------
+
+PEPS_L, PEPS_D, PEPS_CHI, PEPS_NITS, PEPS_SEED = 16, 3, 32, 30, 42
+PEPS_TAUS = (0.3, 0.1, 0.03)
+# quimb_tpu's float64 values of the same protocol from the same arrays, on
+# a CPU: JAX_PLATFORMS=cpu python scripts/peps16_reference.py, which also
+# writes every gauge vector to PEPS_REF
+PEPS_REF = "scripts/peps16_reference.json"
+PEPS_QTPU_E_SITE = -0.6281269957057047
+PEPS_QTPU_E_SIMPLE = -155.9586345760443
+PEPS_QTPU_GAUGE_SUM = 565.0163438354033
+PEPS_E_TOL, PEPS_GAUGE_TOL, PEPS_SIMPLE_TOL = 1e-6, 1e-6, 1e-8
+PEPS_F32_SIMPLE_TOL = 1e-4
+PEPS_WINDOW = 3
+# printed beside the result, not gated: two artifacts that never ran one
+# protocol with quimb_tpu (VERDICT.md:130-138)
+PEPS_ARTIFACTS = (
+    ("jcmgray/quimb on a CPU, benchref/ref_peps16.json", -0.6228427),
+    ("quimb_tpu float32 on a CPU, benchref/crosscheck_peps16.log",
+     -0.6302621),
+)
+CPEPS_L, CPEPS_DEPTH, CPEPS_SEED, CPEPS_BOND, CPEPS_TOL = 4, 4, 7, 64, 1e-10
+# drops only numerically zero weight (the rsum2 tail of squared singular
+# values below 1e-14 of the total): the gates' splits and the amplitudes'
+# boundary stay exact, where cutoff 0 would keep the zeros up to the bond
+# limit
+CPEPS_CUTOFF = 1e-14
+
+
+def peps_start_arrays(L, D, seed=PEPS_SEED, phys_dim=2):
+    """``PEPS_rand``'s shapes (u, r, d, l, p, edge bonds dropped), drawn
+    site by site from ``default_rng(seed)``: the arrays of
+    scripts/peps16_reference.py."""
+    rng = np.random.default_rng(seed)
+    return [[rng.standard_normal(
+        [D] * sum((i < L - 1, j < L - 1, i > 0, j > 0)) + [phys_dim])
+        for j in range(L)] for i in range(L)]
+
+
+def _peps_reference():
+    """quimb_tpu's gauges by bond pair, checked against the constants."""
+    ref = json.loads(Path(PEPS_REF).read_text())
+    if (ref["L"], ref["D"], ref["chi"], ref["steps"]) != (
+            PEPS_L, PEPS_D, PEPS_CHI, 2 + len(PEPS_TAUS) * PEPS_NITS) or (
+            ref["energy_per_site"], ref["energy_simple"],
+            ref["gauge_sum"]) != (PEPS_QTPU_E_SITE, PEPS_QTPU_E_SIMPLE,
+                                  PEPS_QTPU_GAUGE_SUM):
+        raise AssertionError(f"{PEPS_REF} is not the recorded reference")
+    gauges = {}
+    for key, v in ref["gauges"].items():
+        a, b = (tuple(int(x) for x in c.split(",")) for c in key.split("-"))
+        gauges[a, b] = np.asarray(v)
+    return gauges
+
+
+def _peps_evolve(dtype, ham):
+    """SimpleUpdate of the start arrays in ``dtype``: evolve(2, tau=0.3),
+    then PEPS_NITS steps at each tau, timed. Returns the updater and the
+    seconds a step, with the host syncs each step made."""
+    psi0 = quimb_torch.PEPS([[a.astype(numpy_dtype(dtype)) for a in row]
+                             for row in peps_start_arrays(PEPS_L, PEPS_D)])
+    su = quimb_torch.SimpleUpdate(psi0, ham, D=PEPS_D,
+                                  compute_energy_every=None,
+                                  compute_energy_final=False)
+    _, warm = _timed(lambda: su.evolve(2, tau=0.3))
+    if su._fstacks is None or not su._fstacks[0].is_cuda:
+        raise AssertionError("SimpleUpdate did not run the fused stacks on "
+                             "the card")
+    secs = 0.0
+    with _counted_syncs() as syncs:
+        for tau in PEPS_TAUS:
+            _, t = _timed(lambda: su.evolve(PEPS_NITS, tau=tau))
+            secs += t
+    nsteps = len(PEPS_TAUS) * PEPS_NITS
+    print(f"SimpleUpdate {dtype}: {PEPS_L}x{PEPS_L}, D={PEPS_D}, warm-up "
+          f"evolve(2) {warm:.3f} s, then {nsteps} steps at {secs / nsteps:.5f}"
+          f" s a step ({secs:.3f} s); {len(syncs) / nsteps:.2f} host syncs a "
+          f"step" + (f" ({sorted(set(syncs))})" if syncs else ""), flush=True)
+    return su, secs / nsteps
+
+
+def _peps_gauge_check(su, ref):
+    """The largest distance of the port's gauge vectors from quimb_tpu's."""
+    gauges = su.gauges
+    if set(gauges) != set(ref) or len(ref) != 2 * PEPS_L * (PEPS_L - 1):
+        raise AssertionError("the gauges' bonds differ from quimb_tpu's")
+    got = torch.stack([gauges[k] for k in ref]).to(torch.float64)
+    want = torch.as_tensor(np.stack(list(ref.values())), device=got.device)
+    return float((got - want).abs().max()), float(got.sum())
+
+
+def _class_batch(su):
+    """One class update (horizontal, even) on a copy of the fused stacks,
+    with the arrays its QRs and its bond SVD took, and the update's
+    arguments."""
+    F = su_fused
+    S, GH, GV = (x.clone() for x in su._fstacks)
+    p = S.shape[2]
+    gates = F.class_gate_stacks(su.ham, PEPS_L, PEPS_L, -su.tau, p,
+                                numpy_dtype(S.dtype), S.device)
+    seen = {"qr": [], "svd": [], "qr_s": 0.0, "svd_s": 0.0}
+    qr, svd = torch.linalg.qr, F._bond_svd
+
+    def recorded(key, fn):
+        def call(x, *a, **k):
+            seen[key].append(x)
+            out, secs = _timed(lambda: fn(x, *a, **k))
+            seen[key + "_s"] += secs
+            return out
+        return call
+
+    torch.linalg.qr = recorded("qr", qr)
+    F._bond_svd = recorded("svd", svd)
+    try:
+        _, total = _timed(lambda: F._h_class_update(
+            S, GH, GV, gates[0], 0, su.gauge_smudge))
+    finally:
+        torch.linalg.qr, F._bond_svd = qr, svd
+    return seen, total
+
+
+def peps_split_table(su):
+    """One class's batch of bond SVDs by each route, with the QRs and the
+    rest of the class update: median ms on a synchronised host clock, and
+    each route's largest distance from a float64 host SVD's values."""
+    F = su_fused
+    # twice: the first call pays for the solvers' first use
+    _class_batch(su)
+    seen, total = _class_batch(su)
+    qrs, M = seen["qr"], seen["svd"][0]
+    D = PEPS_D
+    s_ref = torch.as_tensor(np.linalg.svd(to_host(M).astype(np.float64),
+                                          compute_uv=False)[..., :D])
+    eye = torch.eye(D, dtype=M.dtype, device=M.device)
+    routes = {
+        "the path's route, su_fused._bond_svd (batched gesvdj)":
+            lambda: F._bond_svd(M),
+        "gesvd (one matrix at a time)":
+            lambda: torch.linalg.svd(M, full_matrices=False,
+                                     driver="gesvd"),
+        "su_fused._topd_split (matmuls only)":
+            lambda: F._topd_split(M, D),
+    }
+    print(f"bond split of one class ({tuple(M.shape)} {M.dtype}):",
+          flush=True)
+    rows = {}
+    for name, fn in routes.items():
+        u, s, v = fn()
+        ms = _host_ms(fn)
+        u, s, v = u[..., :, :D], s[..., :D], v[..., :D, :]
+        ortho = float(torch.linalg.matrix_norm(
+            u.mT.conj() @ u - eye, 2).max())
+        err = float((s.double().cpu() - s_ref).abs().max()
+                    / s_ref[..., 0].min())
+        rows[name] = ms
+        print(f"  {name}: {ms:.3f} ms, top-{D} values {err:.3e} relative "
+              f"from a host SVD, ||U^T U - I||_2 {ortho:.3e}", flush=True)
+    qr_ms, svd_ms = 1e3 * seen["qr_s"], 1e3 * seen["svd_s"]
+    print(f"  one class update, each solver call synchronised: "
+          f"{1e3 * total:.3f} ms; its {len(qrs)} QRs of {tuple(qrs[0].shape)}"
+          f" {qr_ms:.3f} ms, its split {svd_ms:.3f} ms, the rest "
+          f"{1e3 * total - qr_ms - svd_ms:.3f} ms; host syncs of one QR "
+          f"{_syncs(lambda: torch.linalg.qr(qrs[0]))}, of one split "
+          f"{_syncs(lambda: F._bond_svd(M))}", flush=True)
+    return rows
+
+
+@contextlib.contextmanager
+def _counted_syncs():
+    """Yields a list that holds, on exit, the messages of the synchronising
+    CUDA operations made inside, as torch's sync debug mode reports them."""
+    import warnings
+
+    syncs = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield syncs
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs += [str(w.message).splitlines()[0] for w in caught
+              if "synchroniz" in str(w.message)]
+
+
+def _syncs(fn):
+    with _counted_syncs() as syncs:
+        fn()
+    return len(syncs)
+
+
+def run_circuit_peps():
+    """A 4x4 random circuit as a CircuitPEPS with a bond limit that keeps
+    it exact, against the port's exact Circuit, both on the card."""
+    rng = np.random.default_rng(CPEPS_SEED)
+    n, Ly = CPEPS_L * CPEPS_L, CPEPS_L
+    pairs = [[], [], [], []]  # horizontal even / odd, vertical even / odd
+    for i in range(CPEPS_L):
+        for j in range(Ly):
+            q = i * Ly + j
+            if j + 1 < Ly:
+                pairs[j % 2].append((q, q + 1))
+            if i + 1 < CPEPS_L:
+                pairs[2 + i % 2].append((q, q + Ly))
+    gates = []
+    for _ in range(CPEPS_DEPTH):
+        gates += [("U3", *rng.uniform(0, 2 * np.pi, 3), q) for q in range(n)]
+        gates += [("CZ", *pq) for cls in pairs for pq in cls]
+    cp = quimb_torch.CircuitPEPS(CPEPS_L, max_bond=CPEPS_BOND,
+                                 cutoff=CPEPS_CUTOFF)
+    _, secs = _timed(lambda: cp.apply_gates(gates))
+    exact = quimb_torch.Circuit(N=n)
+    exact.apply_gates(gates)
+    if not all(t.data.is_cuda and t.dtype == torch.complex128
+               for t in cp.psi):
+        raise AssertionError("the CircuitPEPS state is not on the card")
+    worst = 0.0
+    for b in ["0" * n] + ["".join(rng.choice(["0", "1"], size=n))
+                          for _ in range(4)]:
+        amp, t = _timed(lambda: cp.amplitude(b, cutoff=CPEPS_CUTOFF))
+        want = complex(exact.amplitude(b))
+        worst = max(worst, abs(amp - want))
+        print(f"  CircuitPEPS amplitude {b}: {amp:.12e} ({t:.3f} s), "
+              f"exact Circuit {want:.12e}", flush=True)
+    print(f"CircuitPEPS {CPEPS_L}x{CPEPS_L}, depth {CPEPS_DEPTH}: "
+          f"{len(gates)} gates in {secs:.3f} s, bonds up to "
+          f"{cp.psi.max_bond()}; largest distance from the exact Circuit "
+          f"{worst:.3e} (bound {CPEPS_TOL:.0e})", flush=True)
+    if not worst <= CPEPS_TOL:
+        raise AssertionError("CircuitPEPS misses the exact amplitudes")
+
+
+def run_peps_path():
+    """The 16x16 PEPS: SimpleUpdate and the chi=32 energy in float64, held
+    to quimb_tpu's; SimpleUpdate in float32; CircuitPEPS."""
+    t_phase = time.perf_counter()
+    ref = _peps_reference()
+    _reset_launches()
+    ham = quimb_torch.ham_2d_heis(PEPS_L, PEPS_L)
+    su, _ = _peps_evolve(torch.float64, ham)
+    # the class batches come from the fused stacks, before reading the
+    # gauges turns them back into a PEPS
+    peps_split_table(su)
+    gerr, gsum = _peps_gauge_check(su, ref)
+    print(f"SimpleUpdate float64: {len(ref)} gauge vectors, largest distance "
+          f"from quimb_tpu's {gerr:.3e} (bound {PEPS_GAUGE_TOL:.0e}); sum "
+          f"{gsum!r} (quimb_tpu's {PEPS_QTPU_GAUGE_SUM!r})", flush=True)
+    if not gerr <= PEPS_GAUGE_TOL:
+        raise AssertionError("the gauges miss quimb_tpu's")
+    e_simple, secs = _timed(su.compute_energy_simple)
+    rel = abs(e_simple - PEPS_QTPU_E_SIMPLE) / abs(PEPS_QTPU_E_SIMPLE)
+    print(f"compute_energy_simple float64: {e_simple!r} ({secs:.3f} s), "
+          f"relative to quimb_tpu's {rel:.3e} (bound {PEPS_SIMPLE_TOL:.0e})",
+          flush=True)
+    if not rel <= PEPS_SIMPLE_TOL:
+        raise AssertionError("compute_energy_simple misses quimb_tpu's")
+    psi, secs = _timed(su.get_state)
+    print(f"get_state: {secs:.3f} s", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    e, secs = _timed(lambda: psi.compute_local_expectation(
+        ham.terms, max_bond=PEPS_CHI, normalized=True))
+    peak = torch.cuda.max_memory_allocated() - base
+    e_site = float(np.real(complex(e))) / PEPS_L ** 2
+    diff = abs(e_site - PEPS_QTPU_E_SITE)
+    print(f"compute_local_expectation(max_bond={PEPS_CHI}) float64: "
+          f"{secs:.3f} s, peak allocation {peak / 1e9:.4f} GB; E/site "
+          f"{e_site!r}, {diff:.3e} from quimb_tpu's {PEPS_QTPU_E_SITE!r} "
+          f"(bound {PEPS_E_TOL:.0e})", flush=True)
+    for what, val in PEPS_ARTIFACTS:
+        print(f"  not gated: {what} {val} ({e_site - val:+.3e})", flush=True)
+    if not diff <= PEPS_E_TOL:
+        raise AssertionError("the PEPS energy misses quimb_tpu's")
+    norm = psi.make_norm()
+    norm.equalize_norms_(1.0)
+    # a window of the energy: the first PEPS_WINDOW boundary steps of an
+    # x-environment sweep (a whole compute_x_environments is 2.2 million
+    # device activities, which the profiler takes minutes to process)
+    share, top, wall_us, count = _busy_share(
+        lambda: norm.contract_boundary_from_xmin(
+            max_bond=PEPS_CHI, xrange=(0, PEPS_WINDOW)))
+    print(f"{PEPS_WINDOW} boundary steps (rows 0-{PEPS_WINDOW}) of the "
+          f"energy's environments under torch.profiler: "
+          f"{wall_us / 1e6:.3f} s wall, {count} device activities, busy "
+          "share " + ("not measured" if share is None else f"{share:.4f}"),
+          flush=True)
+    for name, us in top:
+        print(f"  {us / 1e3:.3f} ms  {name[:100]}", flush=True)
+    del su, psi, norm
+    su32, _ = _peps_evolve(torch.float32, ham)
+    e32 = su32.compute_energy_simple()
+    rel = abs(e32 - e_simple) / abs(e_simple)
+    print(f"compute_energy_simple float32: {e32!r}, relative to float64 "
+          f"{rel:.3e} (bound {PEPS_F32_SIMPLE_TOL:.0e}); gesvdj redone by "
+          f"gesvd {dict(decomp.SVD_REDOS)}",
+          flush=True)
+    if not rel <= PEPS_F32_SIMPLE_TOL:
+        raise AssertionError("float32 SimpleUpdate misses the float64 energy")
+    del su32
+    run_circuit_peps()
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError(f"the PEPS phase launched sandwich kernels "
+                             f"{dict(ck.LAUNCHES)}")
+    print(f"PEPS phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main():
     t_start = time.perf_counter()
     check_device()
@@ -1951,6 +2281,8 @@ def main():
     run_circuit_path()
     torch.cuda.empty_cache()
     run_circuit_mps_path()
+    torch.cuda.empty_cache()
+    run_peps_path()
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{

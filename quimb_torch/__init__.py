@@ -12,7 +12,11 @@ Lanczos ``groundenergy`` / ``groundstate`` / ``eigensystem_partial``, and
 Krylov ``expm_multiply`` and ``Evolution``. And the tensor-network object
 layer (``Tensor``, ``TensorNetwork``, simplification, gating) with the exact
 circuit simulator ``Circuit`` and the MPS simulators ``CircuitMPS``,
-``CircuitPermMPS`` and ``CircuitMPSLazy``. Every builder and entry point
+``CircuitPermMPS`` and ``CircuitMPSLazy``. And the PEPS / PEPO layer:
+``PEPS``, ``PEPO``, their builders, boundary contraction, environments and
+local expectations, the ``ham_2d_*`` Hamiltonians, ``SimpleUpdate`` (fused
+colour-class sweeps on the device) and ``TEBD2D``, and ``CircuitPEPS``.
+Every builder and entry point
 puts its tensors on the GPU unless it is given another ``device``, such as
 ``"cpu"``. The package imports torch, never JAX.
 """

@@ -6,7 +6,8 @@ layout of the DMRG engine, MPO tensors ``(wl, wr, u, d)`` and MPS tensors
 ``(l, p, r)``) cross as lists of tensors; a sparse
 Hamiltonian of the exact layer crosses as its scipy matrix; a tensor or
 a tensor network crosses with its arrays read as numpy arrays and its
-``inds`` and ``tags`` kept; a circuit crosses as its list of gates.
+``inds`` and ``tags`` kept; a circuit crosses as its list of gates; a PEPS or PEPO
+crosses like an MPS, and a SimpleUpdate's gauge dict as its vectors.
 Tensors land on ``device``, the GPU unless the caller names another.
 """
 
@@ -49,6 +50,52 @@ def from_tpu_mpo(mpo, device=None, dtype=None):
     return _from_tpu_network(mpo, MatrixProductOperator, device, dtype,
                              upper_ind_id=mpo.upper_ind_id,
                              lower_ind_id=mpo.lower_ind_id)
+
+
+def _from_tpu_2d(tn, cls, device, dtype, **ids):
+    """quimb_tpu's 2D network ``tn`` -> the port's ``cls`` with the same
+    tensors, index names and tags, its arrays read as numpy arrays."""
+    from .tensor.core import Tensor, TensorNetwork
+
+    device = resolve_device(device)
+    new = TensorNetwork([
+        Tensor(to_device(np.asarray(t.data), device=device, dtype=dtype),
+               inds=tuple(t.inds), tags=tuple(t.tags))
+        for t in tn.tensor_map.values()], virtual=True)
+    new.view_as_(cls, Lx=tn.Lx, Ly=tn.Ly, site_tag_id=tn.site_tag_id,
+                 x_tag_id=tn.x_tag_id, y_tag_id=tn.y_tag_id, **ids)
+    new.exponent = getattr(tn, "exponent", 0.0)
+    return new
+
+
+def from_tpu_peps(peps, device=None, dtype=None):
+    """A quimb_tpu ``PEPS`` -> the port's, with the same site and row /
+    column tags, site and bond index names, and arrays (read as numpy).
+    quimb_tpu's ``PEPS.rand`` draws from JAX's generator, which torch
+    cannot reproduce: carry such a state across with this."""
+    from .tensor.tn2d.core import PEPS
+
+    return _from_tpu_2d(peps, PEPS, device, dtype,
+                        site_ind_id=peps.site_ind_id)
+
+
+def from_tpu_pepo(pepo, device=None, dtype=None):
+    """A quimb_tpu ``PEPO`` -> the port's, with the same tags, index names
+    and arrays."""
+    from .tensor.tn2d.core import PEPO
+
+    return _from_tpu_2d(pepo, PEPO, device, dtype,
+                        upper_ind_id=pepo._upper_ind_id,
+                        lower_ind_id=pepo._lower_ind_id)
+
+
+def from_tpu_gauges(gauges, device=None, dtype=None):
+    """A SimpleUpdate's gauge dict (bond pair -> vector) from quimb_tpu ->
+    the same keys with the vectors as tensors on ``device``."""
+    device = resolve_device(device)
+    return {tuple(map(tuple, k)): to_device(np.asarray(v), device=device,
+                                             dtype=dtype)
+            for k, v in gauges.items()}
 
 
 def from_tpu_arrays(Ws, As, device=None, dtype=None):

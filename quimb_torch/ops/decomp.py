@@ -102,7 +102,8 @@ def _random_start(shape, dtype, device, seed):
 
 #: complex SVD batches on CUDA that ``gesvdj`` failed to converge on and
 #: ``gesvd`` redid on the card, by the dtype of the input
-SVD_REDOS = {torch.complex128: 0, torch.complex64: 0}
+SVD_REDOS = {torch.complex128: 0, torch.complex64: 0, torch.float64: 0,
+             torch.float32: 0}
 
 
 def _svd_call(x, driver):
@@ -130,15 +131,15 @@ def _svd_driver(x):
     return "gesvdj" if x.is_complex() else "gesvd"
 
 
-def _checked_gesvdj(x):
-    """``gesvdj`` of ``x`` in complex128. Where it fails to converge, the
+def _checked_gesvdj(x, dtype=torch.complex128):
+    """``gesvdj`` of ``x`` in ``dtype``. Where it fails to converge, the
     same batch is redone with ``gesvd`` on the card and counted in
-    :data:`SVD_REDOS`; a second failure raises."""
+    :data:`SVD_REDOS` under ``x``'s dtype; a second failure raises."""
     try:
-        return _svd_call(x.to(torch.complex128), "gesvdj")
+        return _svd_call(x.to(dtype), "gesvdj")
     except torch.linalg.LinAlgError:
         SVD_REDOS[x.dtype] += 1
-        return _svd_call(x.to(torch.complex128), "gesvd")
+        return _svd_call(x.to(dtype), "gesvd")
 
 
 def safe_svd(x):

@@ -1,7 +1,7 @@
 """Tensor-network algorithms of quimb_torch: the object layer (``Tensor``,
 ``TensorNetwork`` and their functions, as quimb_tpu's ``tensor/__init__.py``
-exports them), the circuit simulators, and the MPS / MPO layer with the 1D
-engines that take it."""
+exports them), the circuit simulators, the MPS / MPO layer with the 1D
+engines that take it, and the PEPS / PEPO layer with the 2D engines."""
 
 from ..ops.contraction import (
     array_contract,
@@ -47,6 +47,8 @@ from .core import (
 )
 from .tn1d import *  # noqa: F401,F403
 from .tn1d import __all__ as _tn1d_all
+from .tn2d import *  # noqa: F401,F403
+from .tn2d import __all__ as _tn2d_all
 
 __all__ = [
     "COPY_tensor",
@@ -86,4 +88,5 @@ __all__ = [
     "set_contract_strategy",
     *_circuit_all,
     *_tn1d_all,
+    *_tn2d_all,
 ]

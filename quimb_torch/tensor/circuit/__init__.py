@@ -1,10 +1,12 @@
 """Quantum circuit simulators (reference ``quimb/tensor/circuit/``): the
 exact lazy tensor-network ``Circuit``, the MPS simulators ``CircuitMPS``,
-``CircuitPermMPS`` and ``CircuitMPSLazy``, the gates and the QASM
-parsers."""
+``CircuitPermMPS`` and ``CircuitMPSLazy``, the PEPS simulator
+``CircuitPEPS``, the gates and the QASM parsers."""
 
 from .core import Circuit, CircuitBase, CircuitDense
 from .mps import CircuitMPS, CircuitMPSLazy, CircuitPermMPS
+from .peps import CircuitPEPS, CircuitPEPSSimpleUpdate
+from .simple_update import CircuitSimpleUpdate
 from .gates import (
     ALL_GATES,
     CONSTANT_GATES,
@@ -23,6 +25,9 @@ __all__ = [
     "CircuitMPS",
     "CircuitMPSLazy",
     "CircuitPermMPS",
+    "CircuitPEPS",
+    "CircuitPEPSSimpleUpdate",
+    "CircuitSimpleUpdate",
     "Gate",
     "ALL_GATES",
     "CONSTANT_GATES",

@@ -651,3 +651,45 @@ def test_dmrg2_from_objects_launches_the_kernel(cuda):
     state = dmrg.state
     assert isinstance(state, quimb_torch.MatrixProductState)
     assert all(t.data.is_cuda for t in state)
+
+
+def _peps_arrays(L, D, seed):
+    rng = np.random.default_rng(seed)
+    return [[rng.standard_normal(
+        [D] * sum((i < L - 1, j < L - 1, i > 0, j > 0)) + [2])
+        for j in range(L)] for i in range(L)]
+
+
+def test_simple_update_step_on_card_matches_cpu(cuda):
+    """One fused SimpleUpdate step of a 4 x 4, D=3 PEPS on the card keeps
+    its stacks there and gives the CPU's gauges and simple energy
+    (float64, 1e-10); the PEPS built with no device lands on the card."""
+    arrays = _peps_arrays(4, 3, seed=2)
+    out = {}
+    for dev in (None, "cpu"):
+        psi = quimb_torch.PEPS([[torch.as_tensor(a, device=dev or cuda)
+                                 for a in row] for row in arrays])
+        su = quimb_torch.SimpleUpdate(psi, quimb_torch.ham_2d_heis(4, 4),
+                                      D=3, compute_energy_every=None,
+                                      compute_energy_final=False)
+        su.evolve(1, tau=0.3)
+        assert su._fstacks[0].device.type == ("cpu" if dev else "cuda")
+        out[dev] = ({k: v.cpu() for k, v in su.gauges.items()},
+                    su.compute_energy_simple())
+    (g_card, e_card), (g_cpu, e_cpu) = out[None], out["cpu"]
+    for k, v in g_cpu.items():
+        assert torch.allclose(g_card[k], v, atol=1e-10)
+    assert abs(e_card - e_cpu) <= 1e-10 * abs(e_cpu)
+    assert quimb_torch.PEPS_rand(2, 2, 2, seed=1)[
+        "I0,0"].data.device.type == "cuda"
+
+
+def test_peps_energy_on_card_matches_cpu(cuda):
+    """``compute_local_expectation`` of a 3 x 3 PEPS runs on the card and
+    gives the CPU's energy (float64, 1e-10)."""
+    arrays = _peps_arrays(3, 2, seed=3)
+    ham = quimb_torch.ham_2d_heis(3, 3)
+    es = [quimb_torch.PEPS([[torch.as_tensor(a, device=dev) for a in row]
+                            for row in arrays]).compute_local_expectation(
+        ham.terms, max_bond=8) for dev in (cuda, "cpu")]
+    assert abs(es[0] - es[1]) <= 1e-10 * abs(es[1])

@@ -32,6 +32,12 @@ def test_import_never_imports_jax():
         "import quimb_torch.tensor.circuit.gates\n"
         "import quimb_torch.tensor.circuit.qasm\n"
         "import quimb_torch.tensor.tn1d.core\n"
+        "import quimb_torch.tensor.tn2d.core, quimb_torch.tensor.tn2d.tebd\n"
+        "import quimb_torch.tensor.tn2d.su_fused\n"
+        "import quimb_torch.tensor.tn2d.builders\n"
+        "import quimb_torch.tensor.tn2d.compress\n"
+        "import quimb_torch.tensor.circuit.peps\n"
+        "import quimb_torch.tensor.circuit.simple_update\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
     )
@@ -71,6 +77,27 @@ def test_circuit_never_imports_jax_when_used():
         "c.amplitude('0000')\n"
         "c.compute_marginal((0, 1), fix={3: 0})\n"
         "list(c.sample(2, seed=1, group_size=2))\n"
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
+    )
+    assert res.returncode == 0, res.stderr
+
+
+def test_peps_layer_never_imports_jax_when_used():
+    """A PEPS, a fused SimpleUpdate step, a boundary energy and a
+    CircuitPEPS amplitude load neither jax nor quimb_tpu."""
+    res = _run(
+        "import sys\n"
+        "import quimb_torch.tensor as ttn\n"
+        "psi = ttn.PEPS_rand(2, 3, 2, seed=1, device='cpu')\n"
+        "ham = ttn.ham_2d_heis(2, 3)\n"
+        "su = ttn.SimpleUpdate(psi, ham, D=2, compute_energy_final=False)\n"
+        "su.evolve(1, tau=0.1)\n"
+        "su.get_state().compute_local_expectation(ham.terms, max_bond=8)\n"
+        "c = ttn.CircuitPEPS(2, device='cpu')\n"
+        "c.apply_gate('H', 0)\n"
+        "c.apply_gate('CZ', 0, 1)\n"
+        "c.amplitude('0000')\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
     )

@@ -196,7 +196,8 @@ def test_rewrite_keeps_value_and_matches(name, net, same_uuids):
     after = _value(ts, out)
     assert _close(after, before)
     assert _close(after, _value(js, out))
-    # the in-place form gives the same network
+    # the in-place form gives the same network, from the same names
+    same_uuids()
     getattr(t, name + "_")(**opts)
     assert (t.num_tensors, t.num_indices) == (ts.num_tensors,
                                               ts.num_indices)
