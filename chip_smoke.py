@@ -154,7 +154,35 @@ an MPS, and the 16x16 PEPS. Its phases, each fatal on failure:
    and the matmul-only ``_topd_split`` with their accuracy, the class
    update's QRs and the rest, the energy's seconds and peak allocation,
    the busy share over a window of its environments, and the two
-   artifacts' energies per site beside the result (not gated).
+   artifacts' energies per site beside the result (not gated);
+17. (after phase 14) complex DMRG on the card: the float64 DMRG2 state
+   cast to complex128 and swept once at chi=256 by DMRG2 on a complex128
+   ``MPO_ham_heis(128)`` built with no device, through the plain product
+   (the dtype rule of ``resolve_sandwich``): the host energy within 1e-6
+   relative of E_REF, no sandwich launch, the sweep's seconds and one bulk
+   bond's breakdown beside phase 8's float64 bond; then complex128 DMRG1
+   and ParallelDMRG at L=16, chi=32 on the card against the same runs on
+   the CPU (1e-9 and 1e-6);
+18. (after phase 16) the rings: (a) DMRG2 of ``MPO_ham_heis(150,
+   cyclic=True)`` in float64 on the segmented ring engine (quimb_tpu's
+   test ``test_cyclic_L150_segmented``: bonds 10, 12, 14, 16, 16, a third
+   of the ring a segment, cutoff 1e-10): the energy within 1e-3 relative
+   of ``heisenberg_energy(150)``, the state cyclic, every closure rank at
+   most 128, <psi|psi> within 1e-2 of 1; seconds, closure ranks and host
+   reads a sweep; (b) phase 10's quench on a 64-site ring (complex128,
+   bond by bond): the 20 entropies within 1e-7 and ``err`` within 1e-2
+   relative of quimb_tpu's complex128 CPU run
+   (``scripts/slice11_reference.py``); seconds a step;
+19. the rest of the 2D layer: (a) phase 16's float64 state, scaled so
+   that its norm is close to 1, contracted at chi=32 by the "mps" and
+   "full-bond" boundaries and CTMRG (HOTRG at chi=16: at 32 its merges
+   outgrow the card), each timed and held to the "mps" value and to
+   quimb_tpu's value within 1e-8; (b)
+   FullUpdate (ALS) and SimpleUpdate of the 4x4 Heisenberg model at D=3,
+   chi=32 from ``default_rng(42)`` start arrays, 6 steps at tau=0.3 then
+   6 at 0.1: FullUpdate's energy below SimpleUpdate's and within 1e-8
+   relative of quimb_tpu's; seconds and host syncs a gate, peak
+   allocation. No phase from 17 on launches a sandwich kernel.
 
 The line before the last is the kernels' JSON summary, one entry per
 kernel with its launches on its paths (DMRG2 and ParallelDMRG for
@@ -163,13 +191,16 @@ its time against the plain einsum (the one library call that computes
 the same product) and its bound. The exact core runs no hand-written
 kernel: its matvec is plain PyTorch, measured in phase 11; nor do the
 circuit, the MPS layer and the PEPS: quimb_tpu's have no Pallas kernel,
-and their products run as batched ``matmul``, QR and SVD on the card. The last line is
+and their products run as batched ``matmul``, QR and SVD on the card;
+nor do complex DMRG, the rings, HOTRG, CTMRG and FullUpdate (quimb_tpu
+runs them on its einsum, QR, SVD and eigh). The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
 import functools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -2183,7 +2214,8 @@ def run_circuit_peps():
 
 def run_peps_path():
     """The 16x16 PEPS: SimpleUpdate and the chi=32 energy in float64, held
-    to quimb_tpu's; SimpleUpdate in float32; CircuitPEPS."""
+    to quimb_tpu's; SimpleUpdate in float32; CircuitPEPS. Returns the
+    float64 state."""
     t_phase = time.perf_counter()
     ref = _peps_reference()
     _reset_launches()
@@ -2238,7 +2270,7 @@ def run_peps_path():
           flush=True)
     for name, us in top:
         print(f"  {us / 1e3:.3f} ms  {name[:100]}", flush=True)
-    del su, psi, norm
+    del su, norm
     su32, _ = _peps_evolve(torch.float32, ham)
     e32 = su32.compute_energy_simple()
     rel = abs(e32 - e_simple) / abs(e_simple)
@@ -2254,6 +2286,406 @@ def run_peps_path():
         raise AssertionError(f"the PEPS phase launched sandwich kernels "
                              f"{dict(ck.LAUNCHES)}")
     print(f"PEPS phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return psi
+
+
+# -- phase 17: complex DMRG ---------------------------------------------------
+
+# the small complex128 DMRG1 and ParallelDMRG runs held to the CPU: L,
+# chi, the seed of their start state, and the bounds on the energies'
+# distance from the CPU's (DMRG1: the same SVDs, eighs and QRs in cuSOLVER
+# and LAPACK, round-off; ParallelDMRG: its batched subspace split depends
+# on each library's column phases, 7e-8 between quimb_tpu and the port)
+CPLX_L, CPLX_CHI, CPLX_SEED = 16, 32, 5
+CPLX_DMRG1_TOL, CPLX_PAR_TOL = 1e-9, 1e-6
+
+
+def host_c128_sweep(psi, H):
+    """(<psi|H|psi>, <psi|psi>) of a complex MPS under an MPO, the sweep
+    of :func:`host_f64_sweep` in complex128 numpy; the real parts."""
+    env = np.ones((1, 1, 1), dtype=np.complex128)
+    nrm = np.ones((1, 1), dtype=np.complex128)
+    for A, W in zip(_arrays(psi), _arrays(H)):
+        Ah = to_host(A).astype(np.complex128)
+        Wh = to_host(W).astype(np.complex128)
+        env = np.einsum("bwk,kdx->bwdx", env, Ah, optimize=True)
+        env = np.einsum("bwdx,wyud->byux", env, Wh, optimize=True)
+        env = np.einsum("byux,bua->ayx", env, Ah.conj(), optimize=True)
+        nrm = np.einsum("bk,kdx->bdx", nrm, Ah, optimize=True)
+        nrm = np.einsum("bdx,bda->ax", nrm, Ah.conj(), optimize=True)
+    return float(env.reshape(()).real), float(nrm.reshape(()).real)
+
+
+def _small_complex_runs():
+    """complex128 DMRG1 and ParallelDMRG at L=CPLX_L, chi=CPLX_CHI on the
+    card against the same runs on the CPU, from one state (two DMRG2
+    sweeps on the CPU from a seeded start); ParallelDMRG's split starts
+    from one draw taken on the CPU. Returns the card's seconds."""
+    H = quimb_torch.MPO_ham_heis(CPLX_L, dtype=torch.complex128,
+                                 device="cpu")
+    d2 = quimb_torch.DMRG2(H, bond_dims=CPLX_CHI, cutoffs=1e-10,
+                           p0=quimb_torch.MPS_rand_state(
+                               CPLX_L, 8, seed=CPLX_SEED,
+                               dtype=torch.complex128, device="cpu"))
+    for direction in "RL":
+        d2.sweep(direction, max_bond=CPLX_CHI, cutoff=1e-10)
+    psi = d2.state
+    draw = decomp._random_start
+    decomp._random_start = lambda shape, dtype, device, seed: draw(
+        shape, dtype, "cpu", seed).to(device)
+    out, secs = {}, 0.0
+    try:
+        for device in ("cpu", "cuda"):
+            t0 = time.perf_counter()
+            Hd, pd_ = H.copy(), psi.copy()
+            for tn in (Hd, pd_):
+                tn.apply_to_arrays(lambda a: a.to(device))
+            d1 = quimb_torch.DMRG1(Hd, bond_dims=CPLX_CHI, cutoffs=1e-10,
+                                   p0=pd_)
+            if d1._sandwich is not ck.prepare_sandwich_reference:
+                raise AssertionError("complex DMRG1 resolved a kernel")
+            e1 = [d1.sweep(d, max_bond=CPLX_CHI, cutoff=1e-10,
+                           canonize=d == "R") for d in "RL"]
+            par = ParallelDMRG(pd_, Hd, max_bond=CPLX_CHI, n_segments=2)
+            ep = [par.sweep() for _ in range(2)]
+            if device == "cuda":
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            out[device] = (e1, ep)
+    finally:
+        decomp._random_start = draw
+    card, cpu = out["cuda"], out["cpu"]
+    d1_dist = max(abs(a - b) for a, b in zip(card[0], cpu[0]))
+    par_dist = max(abs(a - b) for a, b in zip(card[1], cpu[1]))
+    print(f"complex128 DMRG1 (L={CPLX_L}, chi={CPLX_CHI}) energies "
+          f"{card[0]}, largest distance from the CPU's {d1_dist:.3e} "
+          f"(bound {CPLX_DMRG1_TOL:.0e}); ParallelDMRG {card[1]}, "
+          f"{par_dist:.3e} (bound {CPLX_PAR_TOL:.0e}); card {secs:.3f} s",
+          flush=True)
+    if not d1_dist <= CPLX_DMRG1_TOL:
+        raise AssertionError("complex DMRG1 on the card misses the CPU's")
+    if not par_dist <= CPLX_PAR_TOL:
+        raise AssertionError("complex ParallelDMRG on the card misses the "
+                             "CPU's")
+
+
+def run_complex_dmrg(dmrg):
+    """Phase 17: the float64 DMRG2 state cast to complex128 and swept once
+    by DMRG2 at chi=256 on the card, through the plain product; its host
+    energy against E_REF and one bulk bond's breakdown; then the small
+    complex128 DMRG1 and ParallelDMRG runs against the CPU."""
+    t_phase = time.perf_counter()
+    H = quimb_torch.MPO_ham_heis(L, dtype=torch.complex128)
+    if not all(t.data.is_cuda for t in H):
+        raise AssertionError("MPO_ham_heis with no device is not on the GPU")
+    d = quimb_torch.DMRG2(H, bond_dims=CHI, cutoffs=0.0,
+                          p0=dmrg.state.astype(torch.complex128))
+    _check_default_split(d, "complex128 DMRG2")
+    if d._sandwich is not ck.prepare_sandwich_reference:
+        raise AssertionError("complex128 DMRG2 resolved a sandwich kernel")
+    _reset_launches()
+    t0 = time.perf_counter()
+    en = d.sweep("R", max_bond=CHI, cutoff=0.0, canonize=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError(f"complex128 DMRG2 launched sandwich kernels "
+                             f"{dict(ck.LAUNCHES)}")
+    state = d.state
+    if not all(A.dtype == torch.complex128 and A.is_cuda
+               for A in _arrays(state)):
+        raise AssertionError("the complex128 state left the card or dtype")
+    e, n = host_c128_sweep(state, H)
+    rel = abs(e / n - E_REF) / abs(E_REF)
+    print(f"complex128 DMRG2 sweep R max_bond={CHI}: {secs:.3f} s, energy "
+          f"{en:.10f}, host float64 energy {e / n:.12f}, relative to E_REF "
+          f"{rel:.3e} (bound {E_REL_TOL[torch.float64]:.0e}); sandwich "
+          f"launches {dict(ck.LAUNCHES)}", flush=True)
+    if not rel <= E_REL_TOL[torch.float64]:
+        raise AssertionError("the complex128 DMRG2 energy misses E_REF")
+    bond_breakdown(d)
+    _small_complex_runs()
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError("the complex phase launched a sandwich kernel")
+    print(f"complex DMRG phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+# -- phase 18: the rings ------------------------------------------------------
+
+# the reference's own at-scale ring (tests/test_tensor/test_dmrg_cyclic.py
+# ::test_cyclic_L150_segmented): L, the bond schedule of its five right
+# sweeps, the segment's share of the ring and the cutoff; its bounds:
+# 1e-3 relative of the Bethe-ansatz scaling energy, closure ranks at most
+# 128, and <psi|psi> within 1e-2 of 1 (quimb_tpu's own test at L=30)
+RING_L, RING_BONDS, RING_SEGMENT, RING_CUTOFF = 150, (10, 12, 14, 16, 16), \
+    1 / 3, 1e-10
+RING_E_TOL, RING_RANK_MAX, RING_NORM_TOL = 1e-3, 128, 1e-2
+# quimb_tpu's float64 values of phase 18(b) and phase 19, from
+# ``python scripts/slice11_reference.py`` on a CPU (see its docstring)
+SLICE11_REF = "scripts/slice11_reference.json"
+
+
+def _slice11_reference(part):
+    return json.loads(Path(SLICE11_REF).read_text())[part]
+
+
+def _ring_norm(As):
+    """<psi|psi> of a ring from its uniform (chi, d, chi) arrays: the trace
+    of the product of the transfer matrices, in float64 on the card, each
+    partial product rescaled (its scale kept in log)."""
+    chi = As[0].shape[0]
+    M = torch.eye(chi * chi, dtype=As[0].dtype, device=As[0].device)
+    log = 0.0
+    for A in As:
+        T = torch.einsum("apb,cpd->acbd", A, torch.conj(A)).reshape(
+            chi * chi, chi * chi)
+        M = M @ T
+        s = torch.linalg.norm(M)
+        M = M / s
+        log += math.log(float(s))
+    return float(torch.trace(M).real) * math.exp(log)
+
+
+def run_ring_dmrg():
+    """Phase 18(a): DMRG2 of the L=150 Heisenberg ring through the entry
+    points with no device, on the segmented ring engine."""
+    from quimb_torch.calc import heisenberg_energy
+    from quimb_torch.tensor.tn1d import dmrg_cyclic
+
+    t_phase = time.perf_counter()
+    H = quimb_torch.MPO_ham_heis(RING_L, cyclic=True, dtype=torch.float64)
+    d = quimb_torch.DMRG2(H, bond_dims=list(RING_BONDS))
+    if d._cyc is None or not d.ham.cyclic:
+        raise AssertionError("the L=150 ring did not take the ring engine")
+    d.opts["periodic_segment_size"] = RING_SEGMENT
+    eng = d._cyc
+    _reset_launches()
+    want = heisenberg_energy(RING_L)
+    en = None
+    for k, chi in enumerate(RING_BONDS):
+        ranks0, reads0 = len(eng.bond_sizes), eng.host_reads
+        t0 = time.perf_counter()
+        en = d.sweep("R", max_bond=chi, cutoff=RING_CUTOFF)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        print(f"ring sweep {k + 1} (chi={chi}): {secs:.3f} s, energy "
+              f"{en:.10f} ({(en - want) / abs(want):+.3e} from the scaling "
+              f"formula), closure ranks {eng.bond_sizes[ranks0:]}, host "
+              f"reads {eng.host_reads - reads0}", flush=True)
+    psi = d.state
+    As = dmrg_cyclic.cyclic_mps_arrays(psi)
+    nrm = _ring_norm(As)
+    rel = abs(en - want) / abs(want)
+    rank = max(eng.bond_sizes)
+    print(f"ring L={RING_L}: energy {en!r} against {want!r}, relative "
+          f"{rel:.3e} (bound {RING_E_TOL:.0e}); largest closure rank {rank} "
+          f"(bound {RING_RANK_MAX}); <psi|psi> {nrm!r} (bound "
+          f"{RING_NORM_TOL:.0e} from 1); sandwich launches "
+          f"{dict(ck.LAUNCHES)}", flush=True)
+    if not psi.cyclic or not all(A.is_cuda for A in As):
+        raise AssertionError("the ring state is not a cyclic MPS on the GPU")
+    if not rel <= RING_E_TOL:
+        raise AssertionError("the ring energy misses the scaling formula")
+    if not rank <= RING_RANK_MAX:
+        raise AssertionError("a closure rank exceeds its cap")
+    if not abs(nrm - 1) <= RING_NORM_TOL:
+        raise AssertionError("the ring state lost its norm")
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError("the ring DMRG launched a sandwich kernel")
+    print(f"ring DMRG phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+# bounds of phase 18(b) against quimb_tpu's complex128 run on a CPU: the
+# largest distance of the 20 entropies (the port's card run reads 3.7e-9
+# from its CPU run), and err relative. On the sequential path err adds
+# every split's discarded norm to the Trotter estimate: 9600 tails of the
+# smallest singular values kept, whose relative error is the state's
+# over their size (2.7e-3 between the port's card and CPU runs)
+RING_TEBD_ENT_TOL, RING_TEBD_ERR_TOL = 1e-7, 1e-2
+
+
+def run_ring_tebd():
+    """Phase 18(b): phase 10's quench on a ring of TEBD_L sites, complex128,
+    bond by bond on the cyclic MPS, through the entry points with no
+    device."""
+    t_phase = time.perf_counter()
+    ref = _slice11_reference("ring_tebd")
+    if (ref["L"], ref["chi"], ref["steps"], ref["dt"], ref["cutoff"]) != (
+            TEBD_L, TEBD_CHI, TEBD_STEPS, TEBD_DT, TEBD_CUTOFF):
+        raise AssertionError(f"{SLICE11_REF} holds another ring quench")
+    psi0 = quimb_torch.MPS_neel_state(TEBD_L, cyclic=True,
+                                      dtype=torch.float64)
+    H = quimb_torch.ham_1d_heis(TEBD_L, cyclic=True)
+    _reset_launches()
+    tebd = quimb_torch.TEBD(psi0, H, split_opts={"max_bond": TEBD_CHI,
+                                                 "cutoff": TEBD_CUTOFF})
+    entropies, seconds = [], []
+    for k in range(1, TEBD_STEPS + 1):
+        t0 = time.perf_counter()
+        tebd.update_to(k * TEBD_DT, dt=TEBD_DT)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        entropies.append(tebd.entropy(TEBD_L // 2))
+        print(f"ring TEBD step {k}: {seconds[-1]:.4f} s, S(L/2) "
+              f"{entropies[-1]:.12f}", flush=True)
+    pt = tebd.pt
+    if not (pt.cyclic and all(t.data.is_cuda for t in pt)
+            and pt.dtype == torch.complex128):
+        raise AssertionError("the ring TEBD state is not a complex128 ring "
+                             "on the GPU")
+    dist = np.abs(np.asarray(entropies) - np.asarray(ref["entropies"]))
+    rel_err = abs(tebd.err - ref["err"]) / abs(ref["err"])
+    print(f"ring TEBD: {statistics.mean(seconds):.4f} s a step (mean of "
+          f"{TEBD_STEPS}); entropies against quimb_tpu's: max "
+          f"{dist.max():.3e} (bound {RING_TEBD_ENT_TOL:.0e}); err "
+          f"{tebd.err!r} against {ref['err']!r}, relative {rel_err:.3e} "
+          f"(bound {RING_TEBD_ERR_TOL:.0e}); bonds {max(pt.bond_sizes())}; "
+          f"sandwich launches {dict(ck.LAUNCHES)}", flush=True)
+    if not dist.max() <= RING_TEBD_ENT_TOL:
+        raise AssertionError("the ring TEBD entropies miss quimb_tpu's")
+    if not rel_err <= RING_TEBD_ERR_TOL:
+        raise AssertionError("the ring TEBD err misses quimb_tpu's")
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError("the ring TEBD launched a sandwich kernel")
+    print(f"ring TEBD phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+# -- phase 19: the rest of the 2D layer ----------------------------------------
+
+# bounds on each 16x16 norm (the unit-scaled state's, close to 1) relative
+# to quimb_tpu's value of the same method (the port's CPU run reads 2e-14
+# from it, and the card's SimpleUpdate gauges 2.3e-13 from the CPU's), and
+# relative to the port's own "mps"-mode value: twice quimb_tpu's own
+# distances (1.3e-4 full-bond, 1.0e-2 CTMRG, 4.4e-3 HOTRG). HOTRG runs at
+# max_bond HOTRG_CHI: its second merges hold tensors of chi**6 entries,
+# 8 GB each at chi=32, and a row of them ran the 80 GB card out of memory
+NORM_QTPU_TOL = {"mps": 1e-8, "full_bond": 1e-8, "ctmrg": 1e-8,
+                 "hotrg": 1e-8}
+NORM_MPS_TOL = {"mps": 0.0, "full_bond": 3e-4, "ctmrg": 2e-2,
+                "hotrg": 1e-2}
+HOTRG_CHI = 16
+# FullUpdate: the lattice and schedule of scripts/slice11_reference.py, and
+# the bound on the energy's distance from quimb_tpu's float64 value
+FU_L, FU_D, FU_CHI, FU_SCHEDULE = 4, 3, 32, ((6, 0.3), (6, 0.1))
+FU_E_TOL = 1e-8
+
+
+def unit_state(psi, chi):
+    """``psi`` scaled in place so that ``<psi|psi>`` is close to 1, as
+    scripts/slice11_reference.py scales quimb_tpu's: every site tensor to
+    norm 1, then all by one factor from ``log10 <psi|psi>`` read off the
+    last row's ``xmin`` environment at ``chi`` (mantissa and exponent).
+    The state's own ``exponent`` is dropped (its scale is irrelevant)."""
+    psi.exponent = 0.0
+    for t in psi:
+        t.modify(apply=lambda d: d / torch.linalg.norm(d))
+    norm = psi.make_norm()
+    env = norm.compute_x_environments(max_bond=chi)["xmin", psi.Lx - 1]
+    last = quimb_torch.TensorNetwork(tuple(env) + tuple(
+        norm.select(norm.x_tag(psi.Lx - 1), which="any")), virtual=False)
+    log10 = math.log10(abs(complex(last.contract(...)))) + env.exponent
+    f = 10.0 ** (-log10 / (2 * psi.num_tensors))
+    for t in psi:
+        t.modify(apply=lambda d: d * f)
+    return psi
+
+
+def run_peps_norms(psi):
+    """Phase 19(a): the 16x16 SimpleUpdate state's norm at chi=32 by the
+    "mps" and "full-bond" boundary modes and CTMRG, and by HOTRG at
+    chi=HOTRG_CHI."""
+    ref = _slice11_reference("peps16_norms")
+    if (ref["L"], ref["D"], ref["chi"]) != (PEPS_L, PEPS_D, PEPS_CHI):
+        raise AssertionError(f"{SLICE11_REF} holds other norms")
+    _reset_launches()
+    norm = unit_state(psi.copy(), PEPS_CHI).make_norm()
+    calls = {
+        "mps": lambda tn: tn.contract_boundary(max_bond=PEPS_CHI),
+        "full_bond": lambda tn: tn.contract_boundary(max_bond=PEPS_CHI,
+                                                     mode="full-bond"),
+        "ctmrg": lambda tn: tn.contract_ctmrg(max_bond=PEPS_CHI),
+        "hotrg": lambda tn: tn.contract_hotrg(max_bond=HOTRG_CHI),
+    }
+    vals = {}
+    for name, fn in calls.items():
+        tn = norm.copy()
+        val, secs = _timed(lambda: fn(tn))
+        vals[name] = float(np.real(complex(val)))
+        rm = abs(vals[name] - vals["mps"]) / abs(vals["mps"])
+        q = ref[name]["value"]
+        rq = abs(vals[name] - q) / abs(q)
+        print(f"16x16 norm by {name}: {vals[name]!r} ({secs:.3f} s; "
+              f"quimb_tpu's host run {ref[name]['seconds']:.1f} s), "
+              f"relative to quimb_tpu's {q!r} {rq:.3e} (bound "
+              f"{NORM_QTPU_TOL[name]:.0e}), to the mps mode's {rm:.3e} "
+              f"(bound {NORM_MPS_TOL[name]:.0e})", flush=True)
+        if not (math.isfinite(vals[name]) and rq <= NORM_QTPU_TOL[name]
+                and rm <= NORM_MPS_TOL[name]):
+            raise AssertionError(f"the 16x16 norm by {name} misses its "
+                                 f"bounds")
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError("the 2D contractions launched a sandwich "
+                             "kernel")
+
+
+def run_full_update():
+    """Phase 19(b): FullUpdate (ALS) and SimpleUpdate of the FU_L x FU_L
+    Heisenberg model at D=3, chi=32 from the start arrays, on the
+    reference's schedule, through the entry points with no device."""
+    ref = _slice11_reference("full_update")
+    if (ref["L"], ref["D"], ref["chi"], ref["schedule"]) != (
+            FU_L, FU_D, FU_CHI, [list(s) for s in FU_SCHEDULE]):
+        raise AssertionError(f"{SLICE11_REF} holds another FullUpdate run")
+    _reset_launches()
+    ham = quimb_torch.ham_2d_heis(FU_L, FU_L)
+    out = {}
+    for name, cls, kw in (
+            ("full_update", quimb_torch.FullUpdate, {}),
+            ("simple_update", quimb_torch.SimpleUpdate,
+             {"compute_energy_every": None})):
+        psi0 = quimb_torch.PEPS([[a for a in row] for row in
+                                 peps_start_arrays(FU_L, FU_D)])
+        ev = cls(psi0, ham, D=FU_D, chi=FU_CHI, compute_energy_final=False,
+                 **kw)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        energies, secs, syncs = [], 0.0, None
+        for steps, tau in FU_SCHEDULE:
+            if name == "full_update" and syncs is None:
+                with _counted_syncs() as syncs:
+                    _, t = _timed(lambda: ev.evolve(1, tau=tau))
+                secs += t
+                steps -= 1
+            _, t = _timed(lambda: ev.evolve(steps, tau=tau))
+            secs += t
+            energies.append(ev.compute_energy())
+        peak = torch.cuda.max_memory_allocated() - base
+        out[name] = energies
+        gates = sum(s for s, _ in FU_SCHEDULE) * len(ham.terms)
+        if not ev.state["I0,0"].data.is_cuda:
+            raise AssertionError(f"{name} left the card")
+        print(f"{name} {FU_L}x{FU_L}, D={FU_D}, chi={FU_CHI}: energies "
+              f"{energies} after each stage; {secs:.3f} s, "
+              f"{secs / gates:.4f} s a gate ({gates} gates; quimb_tpu's "
+              f"host run {ref[name]['seconds']:.1f} s); peak allocation "
+              f"{peak / 1e9:.4f} GB" + (
+                  f"; {len(syncs) / len(ham.terms):.1f} host syncs a gate"
+                  if syncs is not None else ""), flush=True)
+    fu, su = out["full_update"][-1], out["simple_update"][-1]
+    q = ref["full_update"]["energies"][-1]
+    print(f"FullUpdate energy {fu!r} against SimpleUpdate's {su!r} and "
+          f"quimb_tpu's {q!r}: {abs(fu - q):.3e} (bound {FU_E_TOL:.0e})",
+          flush=True)
+    if not fu < su:
+        raise AssertionError("FullUpdate does not beat SimpleUpdate")
+    if not abs(fu - q) <= FU_E_TOL * abs(q):
+        raise AssertionError("the FullUpdate energy misses quimb_tpu's")
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError("FullUpdate launched a sandwich kernel")
 
 
 def main():
@@ -2272,6 +2704,8 @@ def main():
     launches[torch.float64] += run_dmrg1_path(dmrg)
     run_tn_layer(dmrg)
     run_mps_layer(dmrg)
+    torch.cuda.empty_cache()
+    run_complex_dmrg(dmrg)
     del dmrg
     for dtype in TEBD_REAL:
         run_tebd_path(dtype)
@@ -2282,7 +2716,15 @@ def main():
     torch.cuda.empty_cache()
     run_circuit_mps_path()
     torch.cuda.empty_cache()
-    run_peps_path()
+    psi16 = run_peps_path()
+    torch.cuda.empty_cache()
+    run_ring_dmrg()
+    run_ring_tebd()
+    t_2d = time.perf_counter()
+    run_peps_norms(psi16)
+    del psi16
+    run_full_update()
+    print(f"2D layer phase: {time.perf_counter() - t_2d:.1f} s", flush=True)
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{

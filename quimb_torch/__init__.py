@@ -14,14 +14,18 @@ layer (``Tensor``, ``TensorNetwork``, simplification, gating) with the exact
 circuit simulator ``Circuit`` and the MPS simulators ``CircuitMPS``,
 ``CircuitPermMPS`` and ``CircuitMPSLazy``. And the PEPS / PEPO layer:
 ``PEPS``, ``PEPO``, their builders, boundary contraction, environments and
-local expectations, the ``ham_2d_*`` Hamiltonians, ``SimpleUpdate`` (fused
-colour-class sweeps on the device) and ``TEBD2D``, and ``CircuitPEPS``.
+local expectations, HOTRG and CTMRG contractions, the ``ham_2d_*``
+Hamiltonians, ``SimpleUpdate`` (fused colour-class sweeps on the device),
+``FullUpdate`` and ``TEBD2D``, and ``CircuitPEPS``. DMRG sweeps a ring of
+40 sites or more with its segmented engine, and TEBD evolves rings too;
+``heisenberg_energy`` is the Heisenberg chain's scaling formula.
 Every builder and entry point
 puts its tensors on the GPU unless it is given another ``device``, such as
 ``"cpu"``. The package imports torch, never JAX.
 """
 
 from . import config  # noqa: F401  (precision setup, before any product)
+from .calc import heisenberg_energy
 from .core import device_operator
 from .evo import Evolution
 from .gen.operators import ham_heis
@@ -37,4 +41,5 @@ from .tensor import __all__ as _tensor_all
 
 __all__ = [*_tensor_all, "Evolution", "computational_state",
            "device_operator", "eigensystem_partial", "expm_multiply",
-           "groundenergy", "groundstate", "ham_heis", "neel_state"]
+           "groundenergy", "groundstate", "ham_heis", "heisenberg_energy",
+           "neel_state"]

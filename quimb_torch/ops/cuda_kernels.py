@@ -255,10 +255,12 @@ def prepare_sandwich_f64(a, b):
 
 def resolve_sandwich(device, dtype):
     """The prepare step for operands of ``dtype`` on ``device``: the plain
-    version on the CPU, a kernel's on CUDA. Raises for what the kernels
-    do not take, so a solver can resolve it once, up front."""
+    version on the CPU and for complex dtypes on CUDA (quimb_tpu's
+    ``use_sandwich_kernel`` sends complex operands to its einsum too), a
+    kernel's for float32 and float64 on CUDA. Raises for what neither
+    takes, so a solver can resolve it once, up front."""
     device = torch.device(device)
-    if device.type == "cpu":
+    if device.type == "cpu" or (device.type == "cuda" and dtype.is_complex):
         return prepare_sandwich_reference
     _check_kernel_target(device, dtype)
     return {torch.float32: prepare_sandwich_tf32,
@@ -284,4 +286,5 @@ def sandwich_matvec(a, theta, b):
     """
     if all(t.device.type == "cpu" for t in (a, theta, b)):
         return sandwich_matvec_reference(a, theta, b)
+    _check_kernel_target(a.device, a.dtype)
     return prepare_sandwich(a, b)(theta)

@@ -1,4 +1,5 @@
-"""1D tensor networks: MPS / MPO objects, their builders, DMRG and TEBD."""
+"""1D tensor networks: MPS / MPO objects, their builders, DMRG (with the
+segmented ring engine of ``dmrg_cyclic``) and TEBD (chains and rings)."""
 
 from .builders import (
     MPO_ham_bilinear_biquadratic,
@@ -56,6 +57,12 @@ from .core import (
     superop_TN_1D,
 )
 from .dmrg import DMRG, DMRG1, DMRG2, DMRGX, MovingEnvironment
+from .dmrg_cyclic import (
+    CyclicSweeper,
+    cyclic_arrays_to_mps,
+    cyclic_mpo_arrays,
+    cyclic_mps_arrays,
+)
 from .dmrg_parallel import ParallelDMRG
 from .tebd import TEBD, LocalHam1D, OTOC_local
 
@@ -66,7 +73,9 @@ NNI_ham_XY = ham_1d_XY
 NNI_ham_ising = ham_1d_ising
 
 __all__ = [
-    "DMRG", "DMRG1", "DMRG2", "DMRGX", "Dense1D", "LocalHam1D",
+    "CyclicSweeper", "DMRG", "DMRG1", "DMRG2", "DMRGX", "Dense1D",
+    "LocalHam1D", "cyclic_arrays_to_mps", "cyclic_mpo_arrays",
+    "cyclic_mps_arrays",
     "MPO_ham_XXZ", "MPO_ham_XY", "MPO_ham_bilinear_biquadratic",
     "MPO_ham_heis", "MPO_ham_ising", "MPO_identity", "MPO_identity_like",
     "MPO_product_operator", "MPO_rand", "MPO_rand_herm", "MPO_zeros",

@@ -62,6 +62,20 @@ def get_default_opts(device=torch.device("cpu")):
         # local_eig_ncv_floor) vectors
         "local_eig_ncv_floor": 8,
         "local_eig_restarts": 1,
+        # the ring engine (dmrg_cyclic.CyclicSweeper): the noise of a bond
+        # growth, the segment's share of the ring, and the closures'
+        # compression tolerances, rank cap (-1: 128) and gauge inverse;
+        # quimb_tpu's compress_method, nullspace_fudge_factor and
+        # orthog_tol entries are kept, and read by neither engine
+        "bond_expand_rand_strength": 1e-6,
+        "periodic_segment_size": 1 / 2,
+        "periodic_compress_method": "isvd",
+        "periodic_compress_norm_eps": 1e-6,
+        "periodic_compress_tol": 1e-6,
+        "periodic_compress_max_bond": -1,
+        "periodic_nullspace_fudge_factor": 1e-12,
+        "periodic_canonize_inv_tol": 1e-10,
+        "periodic_orthog_tol": 1e-6,
     }
 
 
@@ -337,9 +351,10 @@ class DMRG:
     ----------
     ham : MatrixProductOperator
         The Hamiltonian, e.g. from :func:`MPO_ham_heis`. A cyclic one is
-        brought to its exact open form (``ham.to_obc()``, quimb_tpu's
-        ``cyclic_mode="obc"``); the ring engine of ``cyclic_mode=
-        "segmented"`` (quimb_tpu's ``dmrg_cyclic.py``) is not ported.
+        swept by the ring engine (:class:`.dmrg_cyclic.CyclicSweeper`)
+        with ``cyclic_mode="segmented"`` (with ``bsz=2`` and ``which=
+        "SA"``), else brought to its exact open form (``ham.to_obc()``);
+        ``"auto"`` picks the ring engine for 40 sites or more.
     bond_dims : int or sequence of int
         The bond dimension, or a schedule of them for successive sweeps.
     cutoffs : float or sequence of float
@@ -359,7 +374,9 @@ class DMRG:
     of ``ham``; :attr:`state` gives the state back as a
     :class:`MatrixProductState`. The dtype is the promotion of the MPO's
     and the start state's. The sandwich matvec's prepare step is resolved
-    here, once, from that device and dtype.
+    here, once, from that device and dtype: a kernel's for float32 and
+    float64 on CUDA, the plain product for complex dtypes and on the CPU.
+    The ring engine's solves are plain products.
     """
 
     def __init__(self, ham, bond_dims, cutoffs=1e-9, bsz=2, which="SA",
@@ -372,14 +389,15 @@ class DMRG:
         self.phys_dim = ham.phys_dim()
         self._set_bond_dim_seq(bond_dims)
         self._set_cutoff_seq(cutoffs)
+        self.energies = []
+        self.local_energies = []
+        self._cyc = None
+        if cyclic_mode == "auto":
+            cyclic_mode = "segmented" if ham.L >= 40 else "obc"
         if getattr(ham, "cyclic", False):
-            if cyclic_mode == "auto":
-                cyclic_mode = "segmented" if ham.L >= 40 else "obc"
             if cyclic_mode == "segmented" and bsz == 2 and which == "SA":
-                raise NotImplementedError(
-                    "DMRG's cyclic_mode='segmented' (dmrg_cyclic.py) is not "
-                    "ported to quimb_torch yet: ROADMAP item 14(c); "
-                    "cyclic_mode='obc' runs the ring in its open form")
+                self._init_ring(ham, p0)
+                return
             ham = ham.to_obc()
         self.ham = ham
         self._W = _mpo_uniform_arrays(ham)
@@ -405,8 +423,33 @@ class DMRG:
         # ⟨ψ|ψ⟩ for free and the sweep energies are exact variational
         # Rayleigh quotients; without it, raw Ritz values
         self._norm_energy = _mpo_has_identity_channels(self._W)
-        self.energies = []
-        self.local_energies = []
+
+    def _init_ring(self, ham, p0):
+        """Set up the segmented ring engine on the cyclic MPO ``ham`` and
+        the cyclic start state ``p0`` (random by default)."""
+        # dmrg_cyclic builds on this module's steps
+        from .dmrg_cyclic import (CyclicSweeper, cyclic_mpo_arrays,
+                                  cyclic_mps_arrays)
+
+        self.ham = ham
+        Ws = cyclic_mpo_arrays(ham)
+        device = Ws[0].device
+        self.opts = get_default_opts(device)
+        if p0 is None:
+            p0 = MPS_rand_state(self.L, self._bond_dim0, self.phys_dim,
+                                cyclic=True, dtype=ham.dtype, device=device,
+                                site_ind_id=ham.upper_ind_id,
+                                site_tag_id=ham.site_tag_id)
+        self._like = p0
+        As = cyclic_mps_arrays(p0)
+        if any(t.device != device for t in As):
+            raise ValueError("the MPO and the start state must lie on "
+                             "one device")
+        dtype = Ws[0].dtype
+        for t in (*Ws, *As):
+            dtype = torch.promote_types(dtype, t.dtype)
+        self._cyc = CyclicSweeper([W.to(dtype) for W in Ws],
+                                  [a.to(dtype) for a in As], self.opts)
 
     def _set_bond_dim_seq(self, bond_dims):
         if isinstance(bond_dims, int):
@@ -422,7 +465,12 @@ class DMRG:
     @property
     def state(self):
         """The current state, a :class:`MatrixProductState` with the start
-        state's index and tag ids, on the engine's device."""
+        state's index and tag ids, on the engine's device; cyclic when
+        the ring engine sweeps it."""
+        if self._cyc is not None:
+            from .dmrg_cyclic import cyclic_arrays_to_mps
+
+            return cyclic_arrays_to_mps(self._cyc._A, self._like)
         return _arrays_to_mps(self._A, like=self._like)
 
     @property
@@ -569,7 +617,15 @@ class DMRG:
     def sweep(self, direction, max_bond=None, cutoff=1e-9, canonize=True):
         """One full sweep, ``"R"`` or ``"L"``; returns its last energy.
         A right sweep with ``canonize`` first right-canonizes the
-        chain."""
+        chain. On a ring the engine sweeps its segments, with at least two
+        Lanczos restarts, and gauges each one itself."""
+        if self._cyc is not None:
+            ncv = max(2 * self.opts["local_eig_ncv"],
+                      self.opts["local_eig_ncv_floor"])
+            return self._cyc.sweep(
+                direction, max_bond=max_bond, cutoff=cutoff, ncv=ncv,
+                restarts=max(self.opts["local_eig_restarts"], 2),
+                method=self.opts["bond_compress_method"])
         if direction == "R":
             if canonize:
                 self._right_canonize_all()

@@ -1,4 +1,4 @@
-"""TEBD: time-evolving block decimation for open 1D chains.
+"""TEBD: time-evolving block decimation for 1D chains and rings.
 
 Port of ``quimb_tpu/tensor/tn1d/tebd.py``. ``LocalHam1D`` holds the
 nearest-neighbour terms as host numpy arrays; ``TEBD`` takes a
@@ -19,8 +19,11 @@ Two paths apply a parity sweep (all even, or all odd, bonds):
 - the sequential path otherwise: each bond in turn is QR-reduced, gated
   and split by a truncated SVD, as quimb_tpu's ``gate_split`` does.
 
-Cyclic chains and ``TEBD.shard_onto`` are not ported (ROADMAP queue 1,
-items 14(c) and 18).
+A ring (a cyclic :class:`LocalHam1D`) evolves a cyclic MPS on the
+sequential path: its odd sweep also gates the wrap bond ``(L - 1, 0)``,
+and each bond is the MPS object's own reduce-split move
+(:meth:`~.core.MatrixProductState.gate_split_`), as in quimb_tpu.
+``TEBD.shard_onto`` is not ported (ROADMAP queue 1, item 18).
 """
 
 import numpy as np
@@ -361,9 +364,9 @@ class TEBD:
     Parameters
     ----------
     p0 : MatrixProductState
-        Initial state (copied), e.g. from :func:`MPS_neel_state`. Its
-        device runs the evolution. For real time a real state is promoted
-        to the complex dtype of its precision.
+        Initial state (copied), e.g. from :func:`MPS_neel_state`; cyclic
+        when ``H`` is. Its device runs the evolution. For real time a real
+        state is promoted to the complex dtype of its precision.
     H : LocalHam1D or array or dict
         The local Hamiltonian.
     dt : float, optional
@@ -391,18 +394,25 @@ class TEBD:
         self.L = p0.L
         self.imag = imag
         self._like = p0
-        arrays = _mps_uniform_arrays(p0)
-        self._dtype = arrays[0].dtype
-        if not imag and not self._dtype.is_complex:
-            self._dtype = complex_dtype(self._dtype)
-        self._pt = [A.to(self._dtype, copy=True) for A in arrays]
-        self._device = arrays[0].device
-        self.fused = fused
-        self._vidal = None
-        self._err_pending = []
         if not isinstance(H, LocalHam1D):
             H = LocalHam1D(self.L, H)
         self.H = H
+        self._dtype = p0.dtype
+        if not imag and not self._dtype.is_complex:
+            self._dtype = complex_dtype(self._dtype)
+        if H.cyclic:
+            if not p0.cyclic:
+                raise ValueError("a ring Hamiltonian evolves a cyclic MPS")
+            # the ring keeps its MPS object (sequential path only)
+            self._pt = p0.astype(self._dtype)
+            self._device = next(iter(p0)).data.device
+        else:
+            arrays = _mps_uniform_arrays(p0)
+            self._pt = [A.to(self._dtype, copy=True) for A in arrays]
+            self._device = arrays[0].device
+        self.fused = fused
+        self._vidal = None
+        self._err_pending = []
         self._dt = dt
         self.tol = tol
         self.t = float(t0)
@@ -419,12 +429,19 @@ class TEBD:
     def pt(self):
         """The current state, a :class:`MatrixProductState` with the start
         state's index and tag ids; taken out of the fused B-form, with its
-        zero padding cut, if that is active."""
+        zero padding cut, if that is active; on a ring, the evolving cyclic
+        MPS itself."""
+        if self.H.cyclic:
+            return self._pt
         return _arrays_to_mps(self._arrays(), like=self._like)
 
     @pt.setter
     def pt(self, value):
-        self._pt = [A.to(self._dtype) for A in _mps_uniform_arrays(value)]
+        if self.H.cyclic:
+            self._pt = value.astype(self._dtype)
+        else:
+            self._pt = [A.to(self._dtype)
+                        for A in _mps_uniform_arrays(value)]
         self._vidal = None
 
     def _arrays(self):
@@ -472,6 +489,8 @@ class TEBD:
         if self._vidal is not None:
             s = to_host(self._vidal[1][i]).astype(np.float64)
             return np.sort(s[s > 0])[::-1] ** 2
+        if self.H.cyclic:
+            return to_host(self._pt.schmidt_values(i))
         arrays = [to_host(A) for A in _right_canonize(self._pt)]
         arrays[0] = arrays[0] / np.linalg.norm(arrays[0])
         s = _schmidt_sweep(arrays)[0][i].astype(np.float64)
@@ -488,7 +507,7 @@ class TEBD:
         return float(-(p * np.log2(p)).sum())
 
     def _fused_applicable(self):
-        return (self.fused and self.L >= 4
+        return (self.fused and not self.H.cyclic and self.L >= 4
                 and self.split_opts.get("max_bond") is not None)
 
     def _ensure_vidal(self):
@@ -555,16 +574,16 @@ class TEBD:
 
     def sweep(self, direction, dt_frac):
         """Apply the gates of every even (``"right"``) or odd (``"left"``)
-        bond for a time ``dt_frac * dt``."""
-        if self.H.cyclic:
-            raise NotImplementedError(
-                "TEBD on a cyclic chain is not ported to quimb_torch yet "
-                "(ROADMAP queue 1, item 14(c))")
+        bond for a time ``dt_frac * dt``; on a ring the odd sweep also
+        gates the wrap bond ``(L - 1, 0)``."""
         parity = {"right": 0, "left": 1}.get(direction)
         if parity is None:
             raise ValueError(f"bad direction {direction}")
         if self._fused_applicable():
             self._fused_sweep(parity, dt_frac)
+            return
+        if self.H.cyclic:
+            self._ring_sweep(parity, dt_frac)
             return
         As = list(self._arrays())
         for i in range(parity, self.L - 1, 2):
@@ -573,6 +592,21 @@ class TEBD:
         if self.imag:
             _normalize(As)
         self._pt = As
+
+    def _ring_sweep(self, parity, dt_frac):
+        """One parity sweep of a ring, bond by bond on the cyclic MPS;
+        each split's error is added to :attr:`err`."""
+        pairs = [(i, i + 1) for i in range(parity, self.L - 1, 2)]
+        if parity == 1:
+            pairs.append((self.L - 1, 0))
+        for where in pairs:
+            U = self._get_gates([where], dt_frac * self._dt)[0]
+            info = {"error": None}
+            self._pt.gate_split_(U, where, info=info, **self.split_opts)
+            if info.get("error") is not None:
+                self._err += float(info["error"])
+        if self.imag:
+            self._pt.normalize()
 
     def _step_order2(self, tau=1.0):
         """Second-order Suzuki-Trotter step."""

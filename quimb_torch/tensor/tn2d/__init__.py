@@ -1,5 +1,6 @@
-"""2D tensor networks: PEPS / PEPO, boundary contraction and
-environments, the 2D local Hamiltonians, TEBD2D and SimpleUpdate."""
+"""2D tensor networks: PEPS / PEPO, boundary contraction (every mode,
+``"full-bond"`` included) and environments, HOTRG and CTMRG, the 2D local
+Hamiltonians, TEBD2D, SimpleUpdate and FullUpdate."""
 
 from .builders import (
     PEPO_identity,
@@ -17,6 +18,8 @@ from .core import (
     Rotator2D,
     TensorNetwork2D,
     TensorNetwork2DVector,
+    contract_ctmrg,
+    contract_hotrg,
     gen_2d_bonds,
 )
 from .tebd import (
@@ -36,6 +39,8 @@ __all__ = [
     "PEPS",
     "TensorNetwork2D",
     "TensorNetwork2DVector",
+    "contract_ctmrg",
+    "contract_hotrg",
     "gen_2d_bonds",
     "PEPO_identity",
     "PEPO_product_operator",

@@ -10,9 +10,12 @@ Each boundary step contracts a row into the boundary tensor by tensor,
 then canonizes and compresses along it (QR and truncated SVD), on the
 device of the network's tensors. ``compute_local_expectation`` contracts
 there too; a caller who wants host contractions enters
-``contract_backend("numpy")`` with host arrays. The coarse-graining
-schemes (HOTRG, CTMRG) and the ``"full-bond"`` boundary mode are not
-ported yet and raise naming ROADMAP item 13(b).
+``contract_backend("numpy")`` with host arrays. The ``"full-bond"``
+boundary mode compresses each new bond against its whole environment,
+from lazily computed opposite-direction environments; the coarse-graining
+schemes are ``contract_hotrg`` (pairwise row and column merges with bond
+truncation) and ``contract_ctmrg`` (boundaries absorbed from all four
+sides in turn).
 """
 
 import functools
@@ -26,6 +29,7 @@ from ..core import (
     Tensor,
     TensorNetwork,
     _deferred,
+    bonds,
     rand_uuid,
     tags_to_oset,
 )
@@ -354,11 +358,106 @@ class TensorNetwork2D(TensorNetwork):
                            r.y_tag(j)))
         return self
 
-    def _contract_boundary_full_bond(self, *args, **kwargs):
-        """Boundary contraction compressing each bond against its full
-        environment (reference ``_contract_boundary_full_bond``
-        tn2d/core.py:1486): not ported yet."""
-        raise _deferred("13(b)", "contract_boundary mode 'full-bond'")
+    def _contract_boundary_full_bond(
+        self, xrange, yrange, from_which, max_bond, cutoff=0.0,
+        method="eigh", renorm=False, optimize="auto",
+        opposite_envs=None, canonize_opts=None,
+        contract_boundary_opts=None,
+    ):
+        """Contract the boundary, compressing each new bond against the
+        whole environment of the rest of the network: the row's ladder
+        with the opposite-direction boundary environment, computed lazily
+        (once, into ``opposite_envs``) and reused (reference
+        ``_contract_boundary_full_bond`` tn2d/core.py:1486)."""
+        from ...ops import decomp
+
+        contract_boundary_opts = dict(contract_boundary_opts or {})
+        contract_boundary_opts.setdefault("max_bond", max_bond)
+        contract_boundary_opts.setdefault("cutoff", cutoff)
+
+        r = Rotator2D(self, xrange, yrange, from_which)
+        jmin, jmax, istep = r.jmin, r.jmax, r.istep
+        if jmin == jmax:
+            # absorbing the last row would contract the whole network to a
+            # scalar and leave it empty (quimb_tpu's does)
+            raise ValueError("full-bond needs two or more columns across "
+                             "the sweep: one column has no boundary bond")
+
+        # the opposite environments, and how to compute them
+        if r.plane == "x":
+            env_location = "xmax" if from_which == "xmin" else "xmin"
+            env_fn = functools.partial(self.compute_x_environments,
+                                       **contract_boundary_opts)
+        else:
+            env_location = "ymax" if from_which == "ymin" else "ymin"
+            env_fn = functools.partial(self.compute_y_environments,
+                                       **contract_boundary_opts)
+        if opposite_envs is None:
+            opposite_envs = {}
+
+        for i in r.sweep[:-1]:
+            inext = i + istep
+            # absorb row i into row inext, column by column, exactly
+            for j in r.sweep_other:
+                self.contract_tags_(
+                    (r.site_tag(i, j), r.site_tag(inext, j)), which="any")
+            for j in r.sweep_other:
+                tag0 = r.site_tag(i, j)
+                for tid in tuple(self.tag_map.get(tag0, ())):
+                    t = self.tensor_map[tid]
+                    t.drop_tags((tag0, r.x_tag(i)))
+                    t.add_tag((r.site_tag(inext, j), r.x_tag(inext),
+                               r.y_tag(j)))
+
+            # condition the new boundary row: canonical around its middle
+            # (a row of one tensor has no bond to canonize)
+            row = self.select(r.x_tag(inext), which="any")
+            if row.num_tensors > 1:
+                row.canonize_around_(r.y_tag((jmax + jmin) // 2))
+
+            if (env_location, inext) not in opposite_envs:
+                opposite_envs.update(env_fn())
+            env = opposite_envs[env_location, inext]
+
+            ladder = TensorNetwork(tuple(row) + tuple(env), virtual=False,
+                                   check_collisions=False)
+            # the ladder's partial environments from each end
+            lenvs = {jmin + 1: ladder.select(r.y_tag(jmin), "any")}
+            for j in range(jmin + 2, jmax):
+                lenvs[j] = (ladder.select(r.y_tag(j - 1), "any")
+                            & lenvs[j - 1]).contract()
+            renvs = {jmax - 1: ladder.select(r.y_tag(jmax), "any")}
+            for j in range(jmax - 2, jmin, -1):
+                renvs[j] = (ladder.select(r.y_tag(j + 1), "any")
+                            & renvs[j + 1]).contract()
+
+            for j in range(jmin, jmax):
+                ta = self[r.site_tag(inext, j)]
+                tb = self[r.site_tag(inext, j + 1)]
+                bdim = 1
+                for ix in ta.bonds(tb):
+                    bdim *= ta.ind_size(ix)
+                if bdim <= max_bond:
+                    continue
+                # the bond's environment: the bond cut open in a copy of
+                # the ladder restricted to this column pair
+                tn_be = TensorNetwork((), virtual=True)
+                if j in lenvs:
+                    tn_be &= lenvs[j]
+                tn_be &= ladder.select_any([r.y_tag(j), r.y_tag(j + 1)])
+                if j + 1 in renvs:
+                    tn_be &= renvs[j + 1]
+                tn_be = tn_be.copy()
+                lcut, rcut = rand_uuid(), rand_uuid()
+                tn_be.cut_between(r.site_tag(inext, j),
+                                  r.site_tag(inext, j + 1),
+                                  left_ind=lcut, right_ind=rcut)
+                E = tn_be.to_dense([rcut], [lcut])
+                Cl, Cr = decomp.similarity_compress(
+                    E, max_bond, method=method, renorm=renorm)
+                self.insert_gauge(Cr, [r.site_tag(inext, j)],
+                                  [r.site_tag(inext, j + 1)], Cl)
+        return self
 
     def contract_boundary_from(
         self, from_which, max_bond=None, cutoff=1e-10, sequence=None,
@@ -450,6 +549,10 @@ class TensorNetwork2D(TensorNetwork):
         # side is untouched: sweep the whole grid from one direction
         if mode == "full-bond":
             d = sequence[0]
+            across = yrange if d in ("xmin", "xmax") else xrange
+            if across[0] == across[1]:
+                # one column: no boundary bond to compress, the exact value
+                return tn.contract(...)
             tn.contract_boundary_from(
                 d, max_bond=max_bond, cutoff=cutoff,
                 xrange=tuple(xrange), yrange=tuple(yrange),
@@ -961,18 +1064,118 @@ class PEPO(TensorNetwork2D):
 
 # ---------------------------------------------------------------------------
 # coarse-graining contraction schemes (reference ``contract_hotrg``
-# tn2d/core.py:3611, ``contract_ctmrg`` :3801): not ported yet
+# tn2d/core.py:3611, ``contract_ctmrg`` :3801)
 # ---------------------------------------------------------------------------
 
 
-def contract_hotrg(tn, *args, **kwargs):
-    """HOTRG coarse-graining contraction: not ported yet."""
-    raise _deferred("13(b)", "contract_hotrg")
+def _compress_merged_bond(tn, tag1, tag2, max_bond, cutoff):
+    """Truncate the bond between the sites tagged ``tag1`` and ``tag2``
+    after a pairwise merge. A site of a row left unpaired (an odd row
+    count) still holds one tensor per layer, and two sites need not share
+    a bond: such a pair is left as it is (quimb_tpu skips it by catching
+    the errors of ``compress_between``)."""
+    tids1 = tn.tag_map.get(tag1, ())
+    tids2 = tn.tag_map.get(tag2, ())
+    if len(tids1) != 1 or len(tids2) != 1:
+        return
+    (tid1,), (tid2,) = tids1, tids2
+    if not bonds(tn.tensor_map[tid1], tn.tensor_map[tid2]):
+        return
+    tn._compress_between_tids(tid1, tid2, max_bond=max_bond, cutoff=cutoff)
 
 
-def contract_ctmrg(tn, *args, **kwargs):
-    """CTMRG contraction: not ported yet."""
-    raise _deferred("13(b)", "contract_ctmrg")
+def _merge_rows_pairwise(tn, max_bond, cutoff):
+    """One HOTRG-style coarse-graining step along x: the row pairs
+    (2i, 2i+1) merge into one row, then the doubled bonds within each new
+    row are truncated back to ``max_bond``."""
+    Lx, Ly = tn._Lx, tn._Ly
+    new_Lx = (Lx + 1) // 2
+    for i in range(new_Lx):
+        x0, x1 = 2 * i, 2 * i + 1
+        for j in range(Ly):
+            t0 = tn.site_tag(x0, j)
+            if x1 < Lx:
+                t1 = tn.site_tag(x1, j)
+                if t0 in tn.tag_map and t1 in tn.tag_map:
+                    tn.contract_tags_((t0, t1), which="any")
+            # retag to the coarse row
+            for tid in tuple(tn.tag_map.get(t0, ())):
+                t = tn.tensor_map[tid]
+                t.drop_tags((
+                    t0, tn.site_tag(x1, j) if x1 < Lx else t0,
+                    tn.x_tag(x0), tn.x_tag(x1) if x1 < Lx else tn.x_tag(x0),
+                ))
+                t.add_tag((tn.site_tag(i, j), tn.x_tag(i), tn.y_tag(j)))
+    tn._Lx = new_Lx
+    for i in range(new_Lx):
+        for j in range(Ly - 1):
+            _compress_merged_bond(tn, tn.site_tag(i, j),
+                                  tn.site_tag(i, j + 1), max_bond, cutoff)
+    return tn
+
+
+def _merge_cols_pairwise(tn, max_bond, cutoff):
+    """The column counterpart of :func:`_merge_rows_pairwise`."""
+    Lx, Ly = tn._Lx, tn._Ly
+    new_Ly = (Ly + 1) // 2
+    for j in range(new_Ly):
+        y0, y1 = 2 * j, 2 * j + 1
+        for i in range(Lx):
+            t0 = tn.site_tag(i, y0)
+            if y1 < Ly:
+                t1 = tn.site_tag(i, y1)
+                if t0 in tn.tag_map and t1 in tn.tag_map:
+                    tn.contract_tags_((t0, t1), which="any")
+            for tid in tuple(tn.tag_map.get(t0, ())):
+                t = tn.tensor_map[tid]
+                t.drop_tags((
+                    t0, tn.site_tag(i, y1) if y1 < Ly else t0,
+                    tn.y_tag(y0), tn.y_tag(y1) if y1 < Ly else tn.y_tag(y0),
+                ))
+                t.add_tag((tn.site_tag(i, j), tn.x_tag(i), tn.y_tag(j)))
+    tn._Ly = new_Ly
+    for j in range(new_Ly):
+        for i in range(Lx - 1):
+            _compress_merged_bond(tn, tn.site_tag(i, j),
+                                  tn.site_tag(i + 1, j), max_bond, cutoff)
+    return tn
+
+
+def contract_hotrg(tn, max_bond=None, cutoff=1e-10, inplace=False,
+                   equalize_norms=True, **kwargs):
+    """Contract a 2D network by alternating HOTRG-style pairwise
+    coarse-graining of rows and columns with bond truncation (reference
+    ``contract_hotrg`` tn2d/core.py:3611; the truncating projectors come
+    from the pairwise bond compression rather than a HOSVD of the
+    environment). ``max_bond`` defaults to ``max(8, D**2)``."""
+    tn = tn if inplace else tn.copy()
+    if max_bond is None:
+        max_bond = max(8, (tn.max_bond() or 2) ** 2)
+    while (tn._Lx > 1 or tn._Ly > 1) and tn.num_tensors > 4:
+        if tn._Lx > 1:
+            _merge_rows_pairwise(tn, max_bond, cutoff)
+        if equalize_norms:
+            tn.equalize_norms_()
+        if tn._Ly > 1 and tn.num_tensors > 4:
+            _merge_cols_pairwise(tn, max_bond, cutoff)
+        if equalize_norms:
+            tn.equalize_norms_()
+    return tn.contract(...)
+
+
+def contract_ctmrg(tn, max_bond=None, cutoff=1e-10,
+                   sequence=("xmin", "ymin", "xmax", "ymax"), inplace=False,
+                   **kwargs):
+    """Contract a 2D network on a CTMRG-style schedule: the boundaries
+    absorbed inward from all four sides in turn, each absorption followed
+    by a compression of the boundary (reference ``contract_ctmrg``
+    tn2d/core.py:3801; the corner matrices are the boundary tensors at
+    the lattice's corners). ``max_bond`` defaults to ``max(8, D**2)``."""
+    tn = tn if inplace else tn.copy()
+    if max_bond is None:
+        max_bond = max(8, (tn.max_bond() or 2) ** 2)
+    return tn.contract_boundary(max_bond=max_bond, cutoff=cutoff,
+                                sequence=sequence, inplace=True, **kwargs)
 
 
 # bind as methods
@@ -1277,10 +1480,14 @@ def _2d_contract_mps_sweep(self, max_bond=None, cutoff=1e-10,
     )
 
 
-def _2d_coarse_grain_hotrg(self, direction, *args, **kwargs):
-    """One HOTRG coarse-graining step (reference ``coarse_grain_hotrg``):
-    not ported yet."""
-    raise _deferred("13(b)", "coarse_grain_hotrg")
+def _2d_coarse_grain_hotrg(self, direction, max_bond=None, cutoff=1e-10,
+                           inplace=False, **opts):
+    """One HOTRG coarse-graining step along ``direction`` (``"x"`` merges
+    row pairs, ``"y"`` column pairs; reference ``coarse_grain_hotrg``)."""
+    tn = self if inplace else self.copy()
+    if direction in ("x", "xmin", "xmax"):
+        return _merge_rows_pairwise(tn, max_bond, cutoff)
+    return _merge_cols_pairwise(tn, max_bond, cutoff)
 
 
 def _2d_flatten(self, fuse_multibonds=True, inplace=False):
@@ -1416,14 +1623,24 @@ def _wire_2d_parity():
     T2.show = show
 
 
+def _replace_by_scalar(tn, val):
+    """Replace every tensor of ``tn`` by one scalar tensor of ``val``."""
+    for tid in tuple(tn.tensor_map):
+        tn._pop_tensor(tid)
+    tn.add_tensor(Tensor(torch.as_tensor(val)), virtual=True)
+    return tn
+
+
 def _noop_inplace_hotrg(self, **kwargs):
-    """Inplace HOTRG contraction: not ported yet."""
-    return contract_hotrg(self, **kwargs)
+    """In-place HOTRG contraction: the network becomes one scalar tensor
+    of its value."""
+    return _replace_by_scalar(self, contract_hotrg(self, **kwargs))
 
 
 def _noop_inplace_ctmrg(self, **kwargs):
-    """Inplace CTMRG contraction: not ported yet."""
-    return contract_ctmrg(self, **kwargs)
+    """In-place CTMRG contraction: the network becomes one scalar tensor
+    of its value."""
+    return _replace_by_scalar(self, contract_ctmrg(self, **kwargs))
 
 
 _wire_2d_parity()

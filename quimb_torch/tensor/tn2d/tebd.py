@@ -1,4 +1,5 @@
-"""2D imaginary / real time evolution: LocalHam2D, TEBD2D, SimpleUpdate.
+"""2D imaginary / real time evolution: LocalHam2D, TEBD2D, SimpleUpdate,
+FullUpdate.
 
 Port of quimb_tpu's ``tensor/tn2d/tebd.py`` (reference
 ``quimb/tensor/tn2d/tebd.py``: ``LocalHam2D`` :29, ``TEBD2D`` :383,
@@ -11,8 +12,10 @@ gate by gate; ``fused=False`` asks for the per-bond path. The fused
 lattice stays on the device between ``evolve`` calls and is turned back
 into a PEPS and a gauge dict only when ``state`` or ``gauges`` is read.
 The terms of a :class:`LocalHam2D` are host numpy arrays; the gates join
-the state on its device. ``FullUpdate`` is not ported yet and raises
-naming ROADMAP item 13(b).
+the state on its device. ``FullUpdate`` fits every gated pair of sites to
+its environment in ``<psi|psi>`` (boundary contractions at ``chi``): by
+alternating least squares on the normal equations (the default), or by
+L-BFGS on the environment-weighted fidelity with ``torch.autograd``.
 """
 
 import itertools
@@ -21,7 +24,8 @@ import numpy as np
 import torch
 
 from ...ops.backend import numpy_dtype, to_host
-from ..core import _deferred, bonds, tensor_contract
+from ..core import Tensor, TensorNetwork, bonds, tensor_balance_bond, \
+    tensor_contract
 from .core import gen_2d_bonds
 
 
@@ -541,25 +545,308 @@ class SimpleUpdate(TEBD2D):
         return float(torch.stack(vals).to(torch.float64).sum())
 
 
-class FullUpdate(TEBD2D):
-    """Full update (reference ``FullUpdate`` tn2d/tebd.py:968): not
-    ported yet."""
+def _autodiff_plaquette_fitter(ax_a, ax_b, perm, m, p, nsteps):
+    """The fidelity fitter of :meth:`FullUpdate._fit_autodiff`:
+    ``fit(xa0, xb0, E, ET)`` maximizes ``|<f|E|t>|^2 / <f|E|f>`` over the
+    two site arrays, ``f`` their contraction over axes ``ax_a`` / ``ax_b``
+    permuted by ``perm`` to an (m, p) matrix, with ``E`` (m, m) the
+    environment and ``ET`` (m, p) its product with the target.
 
-    def __init__(self, psi0, ham, **kwargs):
-        raise _deferred("13(b)", "FullUpdate")
+    ``nsteps`` steps of ``torch.optim.LBFGS`` (one iteration each, a
+    strong-Wolfe line search, the gradient by ``torch.autograd``) on the
+    arrays' device; the best loss of every point evaluated is kept, and
+    its arrays returned. (quimb_tpu runs optax's L-BFGS in one
+    ``lax.scan`` of ``nsteps`` iterations and keeps the best iterate; the
+    line searches differ, so the two agree in fidelity, not in arrays.)
+    Complex arrays are optimized as their real views."""
+
+    def plaquette(xa, xb):
+        t = torch.tensordot(xa, xb, dims=([ax_a], [ax_b]))
+        return torch.reshape(t.permute(perm), (m, p))
+
+    def fit(xa0, xb0, E, ET):
+        cplx = xa0.is_complex()
+        params = [torch.clone((torch.view_as_real(x) if cplx else x)
+                              .detach(),
+                              memory_format=torch.contiguous_format)
+                  .requires_grad_(True) for x in (xa0, xb0)]
+
+        def arrays():
+            return [torch.view_as_complex(q) if cplx else q for q in params]
+
+        def loss_fn():
+            f = plaquette(*arrays())
+            fh = torch.conj(f.T)
+            tf = torch.trace(fh @ ET)
+            ff = torch.trace(fh @ (E @ f)).real
+            return -(torch.abs(tf) ** 2) / ff
+
+        best = {"val": float("inf"), "params": [q.detach().clone()
+                                                for q in params]}
+
+        def closure():
+            opt.zero_grad()
+            loss = loss_fn()
+            loss.backward()
+            val = float(loss.detach())
+            if val < best["val"]:
+                best["val"] = val
+                best["params"] = [q.detach().clone() for q in params]
+            return loss
+
+        # one iteration a step; its line search may take 25 evaluations
+        # (LBFGS caps the search at max_eval less the evaluations made)
+        opt = torch.optim.LBFGS(params, max_iter=1, max_eval=26,
+                                line_search_fn="strong_wolfe")
+        for _ in range(nsteps):
+            opt.step(closure)
+        with torch.no_grad():
+            final = float(loss_fn())
+        if final < best["val"]:
+            best["params"] = [q.detach().clone() for q in params]
+        return tuple(torch.view_as_complex(q) if cplx else q
+                     for q in best["params"])
+
+    return fit
+
+
+class FullUpdate(TEBD2D):
+    """Full update: each gated pair of sites is fitted against its whole
+    environment in ``<psi|psi>``, from boundary contractions at ``chi``
+    (reference ``FullUpdate`` tn2d/tebd.py:968, ``gate_full_update_als``
+    :724).
+
+    Per gate the environment of the two sites comes from row-boundary
+    environments of ``<psi|psi>``, and the gated pair is fitted at a fixed
+    bond dimension by solving each site's normal equations ``N x = b`` in
+    turn (the environment does not touch the physical index, so ``N`` acts
+    on the bond space only and the physical index rides along as the
+    solve's columns).
+
+    Parameters
+    ----------
+    fit_steps : int
+        The most ALS sweeps per gate (the autodiff fit takes four times as
+        many L-BFGS steps).
+    fit_tol : float
+        The relative change of the cost that ends the ALS sweeps.
+    pos_smudge : float
+        The diagonal shift, relative to ``|tr N| / dim N + 1``, that keeps
+        ``N`` positive.
+    fit_strategy : {'als', 'autodiff'}
+        The gate fit.
+    compute_envs_every : int
+        Recompute the row-boundary environments only every this many
+        gates while the state's bond sizes stay the same (reference
+        tn2d/tebd.py:1164).
+    """
+
+    compute_envs_every = 1
+
+    def __init__(self, psi0, ham, *, fit_steps=12, fit_tol=1e-10,
+                 pos_smudge=1e-8, fit_strategy="als",
+                 compute_envs_every=1, **kwargs):
+        kwargs.setdefault("gate_opts", {}).setdefault("cutoff", 0.0)
+        super().__init__(psi0, ham, **kwargs)
+        self.fit_steps = fit_steps
+        self.fit_tol = fit_tol
+        self.pos_smudge = pos_smudge
+        self.fit_strategy = fit_strategy
+        self.compute_envs_every = compute_envs_every
+        self._env_counter = 0
+        self._x_envs_cache = None
+        self._env_sig = None
+
+    @property
+    def fit_strategy(self):
+        """The gate fit: ``'als'`` (alternating least squares on the
+        normal equations, reference ``gate_full_update_als``
+        tn2d/tebd.py:724) or ``'autodiff'`` (L-BFGS on the
+        environment-weighted fidelity, reference
+        ``gate_full_update_autodiff_fidelity`` tn2d/tebd.py:851)."""
+        return self._fit_strategy
+
+    @fit_strategy.setter
+    def fit_strategy(self, v):
+        if v not in ("als", "autodiff"):
+            raise ValueError(
+                f"fit_strategy must be 'als' or 'autodiff', got {v!r}")
+        self._fit_strategy = v
 
     def set_state(self, psi):
-        """Replace the evolving state (reference ``set_state``)."""
-        raise _deferred("13(b)", "FullUpdate.set_state")
+        """Replace the evolving state (reference ``set_state``
+        tn2d/tebd.py:1153)."""
+        self.state = psi.copy()
+        return self
 
     def presweep(self, i=None):
-        """Hook run before each sweep (reference ``presweep``)."""
-        raise _deferred("13(b)", "FullUpdate.presweep")
+        """The hook run before each sweep (reference ``presweep``
+        tn2d/tebd.py:1243): each gate forms its own environment, so there
+        is nothing to prepare."""
+        return self
 
+    def _get_x_envs(self, norm):
+        """The row-boundary environments of ``norm``, recomputed every
+        ``compute_envs_every`` gates, or whenever a bond of the state has
+        changed size (early gates can still grow bonds); in between the
+        stale ones are reused."""
+        sig = tuple(sorted((ix, self.state.ind_size(ix))
+                           for ix in self.state.ind_map))
+        if (self.compute_envs_every <= 1 or self._x_envs_cache is None
+                or self._env_counter % self.compute_envs_every == 0
+                or self._env_sig != sig):
+            self._x_envs_cache = norm.compute_x_environments(
+                max_bond=self._chi)
+            self._env_sig = sig
+        self._env_counter += 1
+        return self._x_envs_cache
 
-def _autodiff_plaquette_fitter(*args, **kwargs):
-    """FullUpdate's fidelity fitter: not ported yet."""
-    raise _deferred("13(b)", "FullUpdate's autodiff plaquette fitter")
+    def _plaquette_env(self, norm, a, b):
+        """The environment of sites ``a`` and ``b``: the row-boundary
+        environments below and above their rows with the rows between,
+        less the four tensors of the two sites."""
+        psi = self.state
+        x_envs = self._get_x_envs(norm)
+        x0, x1 = min(a[0], b[0]), max(a[0], b[0])
+        strip = TensorNetwork(())
+        bot = x_envs.get(("xmin", x0))
+        if bot is not None and bot.num_tensors:
+            strip.add_tensor_network(bot.copy(), virtual=True,
+                                     check_collisions=False)
+        for x in range(x0, x1 + 1):
+            strip.add_tensor_network(
+                norm.select(norm.x_tag(x), which="any").copy(),
+                virtual=True, check_collisions=False)
+        top = x_envs.get(("xmax", x1))
+        if top is not None and top.num_tensors:
+            strip.add_tensor_network(top.copy(), virtual=True,
+                                     check_collisions=False)
+        ta, tb = psi.site_tag(*a), psi.site_tag(*b)
+        return strip.select((ta, tb), which="!any")
+
+    @staticmethod
+    def _make_bra(ket_t, phys_ind):
+        """The conjugate of a site tensor in the mangled bra layer."""
+        inds = tuple(ix if ix == phys_ind else ix + "*" for ix in ket_t.inds)
+        return Tensor(torch.conj(ket_t.data), inds=inds)
+
+    def _fit_autodiff(self, env, target, fit_a, fit_b, pa, pb):
+        """Fit the gated pair by L-BFGS on the environment-weighted
+        fidelity (reference ``gate_full_update_autodiff_fidelity``
+        tn2d/tebd.py:851): the environment is made dense once over the
+        pair's external bonds, ``E @ target`` once, and
+        :func:`_autodiff_plaquette_fitter` optimizes the two arrays."""
+        inds_a, inds_b = fit_a.inds, fit_b.inds
+        (new_bond,) = bonds(fit_a, fit_b)
+        ext = (tuple(ix for ix in inds_a if ix not in (new_bond, pa))
+               + tuple(ix for ix in inds_b if ix not in (new_bond, pb)))
+        ext_star = tuple(ix + "*" for ix in ext)
+        # the dense environment over (bra ext | ket ext)
+        E = env.to_dense(ext_star, ext)
+        E = (E + torch.conj(E.T)) / 2
+        # the dense gated target over (ket ext | phys)
+        T = target.to_dense(ext, (pa, pb))
+        ET = E @ T.to(E.dtype)
+        # the contraction over the shared bond, then the permutation of
+        # the remaining axes to (ext..., pa, pb)
+        ax_a, ax_b = inds_a.index(new_bond), inds_b.index(new_bond)
+        rem = ([ix for ix in inds_a if ix != new_bond]
+               + [ix for ix in inds_b if ix != new_bond])
+        perm = tuple(rem.index(ix) for ix in ext + (pa, pb))
+        fitter = _autodiff_plaquette_fitter(
+            ax_a, ax_b, perm, E.shape[0], T.shape[1],
+            max(self.fit_steps, 1) * 4)
+        xa, xb = fitter(fit_a.data, fit_b.data, E, ET)
+        fit_a.modify(data=xa)
+        fit_b.modify(data=xb)
+
+    def _fit_als(self, env, target, fit_a, fit_b, pa, pb):
+        """Fit the gated pair by alternating least squares: each site in
+        turn solves its normal equations ``N x = b`` with the other fixed,
+        for at most ``fit_steps`` sweeps or until the cost moves by less
+        than ``fit_tol`` relative (one host read of the cost per sweep)."""
+        prev_cost = None
+        for _ in range(self.fit_steps):
+            for fit_s, fit_o, ps, po in ((fit_a, fit_b, pa, pb),
+                                         (fit_b, fit_a, pb, pa)):
+                bond_ixs = tuple(ix for ix in fit_s.inds if ix != ps)
+                lix = tuple(ix + "*" for ix in bond_ixs)
+                bra_o = self._make_bra(fit_o, po)
+                # the normal matrix over the site's bond space
+                N = TensorNetwork((env, bra_o, fit_o.copy()), virtual=False,
+                                  check_collisions=False).to_dense(
+                                      lix, bond_ixs)
+                N = (N + torch.conj(N.T)) / 2
+                dN = N.shape[0]
+                N = N + (self.pos_smudge
+                         * (torch.abs(torch.trace(N)) / dN + 1.0)
+                         ) * torch.eye(dN, dtype=N.dtype, device=N.device)
+                # the right-hand side: the environment-weighted overlap
+                # with the target
+                bvec = TensorNetwork((env, bra_o, target), virtual=False,
+                                     check_collisions=False).to_dense(
+                                         lix, (ps,)).to(N.dtype)
+                x = torch.linalg.solve(N, bvec)
+                shape = (tuple(fit_s.ind_size(ix) for ix in bond_ixs)
+                         + (fit_s.ind_size(ps),))
+                fit_s.modify(data=torch.reshape(x, shape),
+                             inds=bond_ixs + (ps,))
+            xh = torch.conj(x.T)
+            cost = float(-2.0 * torch.trace(xh @ bvec).real
+                         + torch.abs(torch.trace(xh @ (N @ x))))
+            if prev_cost is not None and abs(cost - prev_cost) <= (
+                    self.fit_tol * max(abs(cost), 1e-30)):
+                break
+            prev_cost = cost
+
+    def gate(self, U, where):
+        """Apply the gate ``U`` to the pair ``where``: the reduce-split
+        application is the fit's start, the gated pair (kept lazy) its
+        target; the fitted pair's new bond is balanced and each tensor
+        keeps its norm."""
+        from ..gating import tensor_network_gate_inds
+
+        psi = self.state
+        a, b = where
+        ta, tb = psi.site_tag(*a), psi.site_tag(*b)
+        pa, pb = psi.site_ind(*a), psi.site_ind(*b)
+
+        norm = psi.make_norm()
+        env = self._plaquette_env(norm, a, b)
+        ket_a0, ket_b0 = psi[ta].copy(), psi[tb].copy()
+        na0, nb0 = float(ket_a0.norm()), float(ket_b0.norm())
+        # the fixed target: the pair with the gate applied lazily
+        target = tensor_network_gate_inds(
+            TensorNetwork((ket_a0.copy(), ket_b0.copy())), U, (pa, pb),
+            contract=False)
+        # the start: the reduce-split application
+        guess = tensor_network_gate_inds(
+            TensorNetwork((ket_a0.copy(), ket_b0.copy())), U, (pa, pb),
+            contract="reduce-split",
+            max_bond=self.gate_opts.get("max_bond", self._D), cutoff=0.0)
+        fit_a, fit_b = guess[ta], guess[tb]
+        if self._fit_strategy == "autodiff":
+            self._fit_autodiff(env, target, fit_a, fit_b, pa, pb)
+        else:
+            self._fit_als(env, target, fit_a, fit_b, pa, pb)
+
+        # balance the new bond and restore the original norms (reference
+        # condition_maintain_norms)
+        if bonds(fit_a, fit_b):
+            tensor_balance_bond(fit_a, fit_b)
+        cna, cnb = float(fit_a.norm()), float(fit_b.norm())
+        if cna > 0 and na0 > 0:
+            fit_a.modify(apply=lambda d: d * (na0 / cna))
+        if cnb > 0 and nb0 > 0:
+            fit_b.modify(apply=lambda d: d * (nb0 / cnb))
+        # write back into the state under the original bond name
+        (old_bond,) = bonds(psi[ta], psi[tb])
+        (new_bond,) = bonds(fit_a, fit_b)
+        if new_bond != old_bond:
+            fit_a.reindex_({new_bond: old_bond})
+            fit_b.reindex_({new_bond: old_bond})
+        for live, fit in ((psi[ta], fit_a), (psi[tb], fit_b)):
+            live.modify(data=fit.transpose(*live.inds).data)
 
 
 # ---------------------------------------------------------------------------

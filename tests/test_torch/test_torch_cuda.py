@@ -1,8 +1,9 @@
 """quimb_torch on a CUDA GPU: the hand-written sandwich kernels (3xTF32
 for float32, FP64 tensor cores for float64) against their plain version,
-small DMRG2, DMRG1, ParallelDMRG and TEBD runs against the CPU port, the
-checked complex SVD, the exact layer's matvecs and solvers, the object
-layer and a circuit's amplitudes and samples.
+small DMRG2, DMRG1, ParallelDMRG and TEBD runs against the CPU port (real
+and complex, chains and rings), the checked complex SVD, the exact layer's
+matvecs and solvers, the object layer, a circuit's amplitudes and samples,
+and the 2D layer's SimpleUpdate, energies and FullUpdate.
 
 Every test here needs a GPU and skips without one. The file imports no
 JAX; on a GPU machine run it without the JAX setup of the test
@@ -693,3 +694,113 @@ def test_peps_energy_on_card_matches_cpu(cuda):
                             for row in arrays]).compute_local_expectation(
         ham.terms, max_bond=8) for dev in (cuda, "cpu")]
     assert abs(es[0] - es[1]) <= 1e-10 * abs(es[1])
+
+
+def test_complex_dmrg_on_card_matches_cpu(cuda, monkeypatch):
+    """complex128 DMRG2, DMRG1 and ParallelDMRG run on the card through
+    the plain product (the dtype rule of ``resolve_sandwich``: no sandwich
+    launch) and give the CPU port's energies. The splits are SVDs on both
+    devices ("svd"); ParallelDMRG's batched split starts from one draw
+    taken on the CPU."""
+    from quimb_torch.ops import decomp
+    from quimb_torch.tensor.tn1d.dmrg_parallel import ParallelDMRG
+
+    H = quimb_torch.MPO_ham_heis(12, dtype=torch.complex128, device="cpu")
+    p0 = quimb_torch.MPS_rand_state(12, 8, seed=3, dtype=torch.complex128,
+                                    device="cpu")
+    energies = {}
+    before = dict(ck.LAUNCHES)
+    draw = decomp._random_start
+    monkeypatch.setattr(
+        decomp, "_random_start",
+        lambda shape, dtype, device, seed: draw(shape, dtype, "cpu",
+                                                seed).to(device))
+    for device in ("cpu", cuda):
+        out = energies[str(device)] = []
+        for cls in (quimb_torch.DMRG2, quimb_torch.DMRG1):
+            dmrg = cls(_on(H, device), bond_dims=8, cutoffs=1e-10,
+                       p0=_on(p0, device))
+            assert dmrg._sandwich is ck.prepare_sandwich_reference
+            dmrg.opts["bond_compress_method"] = "svd"
+            out += [dmrg.sweep(d, max_bond=8, cutoff=1e-10,
+                               canonize=d == "R") for d in "RLR"]
+        pd = ParallelDMRG(_on(dmrg.state, device), _on(H, device),
+                          max_bond=8, n_segments=2)
+        out += [pd.sweep() for _ in range(2)]
+    assert ck.LAUNCHES == before
+    # complex128 on both; cuSOLVER's and LAPACK's SVD, eigh and QR, and
+    # the batched subspace split's phases (CPU parity tests: 1e-6)
+    np.testing.assert_allclose(energies["cuda"][:6], energies["cpu"][:6],
+                               rtol=0, atol=1e-9)
+    np.testing.assert_allclose(energies["cuda"], energies["cpu"], rtol=0,
+                               atol=1e-6)
+
+
+def test_ring_sweep_on_card_matches_cpu(cuda):
+    """One segmented sweep of a 12-site ring (bond 4 grown to 6) on the
+    card against the CPU, both drawing the CPU generator's numbers: the
+    energy agrees to 1e-4 (each closure truncates at 1e-6 of its largest
+    value, and where the cut splits a degenerate pair cuSOLVER and LAPACK
+    keep different vectors of it: 4.9e-5 apart on an H100) and the state
+    stays cyclic on the card."""
+    from quimb_torch.tensor.tn1d import dmrg_cyclic as tc
+
+    energies = {}
+    for device in ("cpu", cuda):
+        dmrg = quimb_torch.DMRG2(
+            quimb_torch.MPO_ham_heis(12, cyclic=True, device=device),
+            bond_dims=4, cyclic_mode="segmented",
+            p0=quimb_torch.MPS_rand_state(12, 4, cyclic=True, seed=2,
+                                          dtype=torch.float64,
+                                          device=device))
+        eng = dmrg._cyc
+        gen = torch.Generator().manual_seed(0)
+        eng._normal = lambda shape, gen=gen, dev=device: torch.randn(
+            shape, generator=gen, dtype=torch.float32).to(dev)
+        dmrg.opts["bond_compress_method"] = "svd"
+        dmrg.opts["periodic_segment_size"] = 1 / 3
+        energies[str(device)] = dmrg.sweep("R", max_bond=6, cutoff=1e-10)
+        psi = dmrg.state
+        assert psi.cyclic and eng.chi == 6
+        assert all(t.data.device.type == torch.device(device).type
+                   for t in psi)
+        assert isinstance(eng, tc.CyclicSweeper)
+    assert abs(energies["cuda"] - energies["cpu"]) < 1e-4
+
+
+def test_ring_tebd_on_card_matches_cpu(cuda):
+    """TEBD of a 6-site ring (complex128, bond by bond, the wrap bond
+    included) on the card gives the CPU's entropies and ``err``."""
+    out = {}
+    for device in ("cpu", cuda):
+        tebd = quimb_torch.TEBD(
+            quimb_torch.MPS_neel_state(6, cyclic=True, device=device),
+            quimb_torch.ham_1d_heis(6, cyclic=True),
+            split_opts={"max_bond": 8, "cutoff": 1e-10})
+        tebd.update_to(0.1, dt=0.05)
+        assert next(iter(tebd.pt)).data.device.type == \
+            torch.device(device).type
+        out[str(device)] = ([tebd.entropy(i) for i in range(1, 6)],
+                            tebd.err)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=1e-10)
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-10
+
+
+def test_full_update_gate_on_card_matches_cpu(cuda):
+    """One FullUpdate step (4 ALS gates) of a 2 x 2, D=2 PEPS on the card
+    gives the CPU's energy (float64, 1e-10); an autodiff step too, to the
+    fits' own agreement (1e-6)."""
+    arrays = _peps_arrays(2, 2, seed=4)
+    for strategy, tol in (("als", 1e-10), ("autodiff", 1e-6)):
+        es = []
+        for dev in (cuda, "cpu"):
+            psi = quimb_torch.PEPS([[torch.as_tensor(a, device=dev)
+                                     for a in row] for row in arrays])
+            fu = quimb_torch.FullUpdate(psi, quimb_torch.ham_2d_heis(2, 2),
+                                        D=2, chi=16, fit_strategy=strategy,
+                                        compute_energy_final=False)
+            fu.evolve(1, tau=0.3)
+            assert fu.state["I0,0"].data.device.type == \
+                torch.device(dev).type
+            es.append(fu.compute_energy())
+        assert abs(es[0] - es[1]) <= tol * abs(es[1])

@@ -38,6 +38,7 @@ def test_import_never_imports_jax():
         "import quimb_torch.tensor.tn2d.compress\n"
         "import quimb_torch.tensor.circuit.peps\n"
         "import quimb_torch.tensor.circuit.simple_update\n"
+        "import quimb_torch.calc, quimb_torch.tensor.tn1d.dmrg_cyclic\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
     )
@@ -130,3 +131,33 @@ def test_chip_smoke_refuses_without_gpu():
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
     assert "no CUDA device" in res.stderr
+
+
+def test_rings_and_2d_layer_never_import_jax_when_used():
+    """A ring DMRG sweep, a ring TEBD step, a FullUpdate gate and the
+    HOTRG, CTMRG and full-bond contractions load neither jax nor
+    quimb_tpu."""
+    res = _run(
+        "import sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "import quimb_torch as qt\n"
+        "from quimb_torch.calc import heisenberg_energy\n"
+        "d = qt.DMRG2(qt.MPO_ham_heis(8, cyclic=True, device='cpu'), "
+        "bond_dims=4, cyclic_mode='segmented')\n"
+        "d.sweep('R', max_bond=4, cutoff=1e-10)\n"
+        "heisenberg_energy(8)\n"
+        "t = qt.TEBD(qt.MPS_neel_state(6, cyclic=True, device='cpu'), "
+        "qt.ham_1d_heis(6, cyclic=True), split_opts={'max_bond': 4})\n"
+        "t.update_to(0.05, dt=0.05)\n"
+        "p = qt.PEPS_rand(2, 2, 2, seed=1, device='cpu', "
+        "dtype=torch.float64)\n"
+        "fu = qt.FullUpdate(p, qt.ham_2d_heis(2, 2), D=2, "
+        "compute_energy_final=False)\n"
+        "fu.evolve(1, tau=0.1)\n"
+        "n = p.make_norm()\n"
+        "n.contract_hotrg(max_bond=8), n.contract_ctmrg(max_bond=8)\n"
+        "n.contract_boundary(max_bond=4, mode='full-bond')\n"
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
+    )
+    assert res.returncode == 0, res.stderr

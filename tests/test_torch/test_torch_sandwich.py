@@ -86,9 +86,11 @@ def test_resolve_sandwich():
         ck.prepare_sandwich_tf32
     assert ck.resolve_sandwich("cuda", torch.float64) is \
         ck.prepare_sandwich_f64
+    # complex operands take the plain product on CUDA too, as quimb_tpu's
+    # use_sandwich_kernel sends them to its einsum
     for dtype in (torch.complex64, torch.complex128):
-        with pytest.raises(NotImplementedError):
-            ck.resolve_sandwich("cuda", dtype)
+        assert ck.resolve_sandwich("cuda", dtype) is \
+            ck.prepare_sandwich_reference
     with pytest.raises(TypeError):
         ck.resolve_sandwich("cuda", torch.float16)
 

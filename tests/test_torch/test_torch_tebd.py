@@ -122,18 +122,26 @@ def test_product_states_match(build):
 
 
 def test_cyclic_chain_is_not_ported():
+    """Once left out naming ROADMAP item 14(c), the ring is now ported
+    (the name is kept): a ring Hamiltonian's TEBD runs on a cyclic MPS and
+    gates the wrap bond; DMRG2 of a ring MPO builds the segmented engine
+    when asked, and the open form otherwise."""
     H = quimb_torch.ham_1d_heis(6, cyclic=True)
     assert (5, 0) in H.terms
-    tebd = quimb_torch.TEBD(quimb_torch.MPS_neel_state(6, device=CPU), H,
-                            split_opts={"max_bond": 8})
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tebd.update_to(0.1, dt=0.05)
-    # the ring's MPO is ported: DMRG runs it in its open form, and only
-    # the segmented ring engine raises
+    with pytest.raises(ValueError, match="cyclic MPS"):
+        quimb_torch.TEBD(quimb_torch.MPS_neel_state(6, device=CPU), H)
+    tebd = quimb_torch.TEBD(
+        quimb_torch.MPS_neel_state(6, cyclic=True, device=CPU), H,
+        split_opts={"max_bond": 8})
+    assert not tebd._fused_applicable()
+    tebd.update_to(0.1, dt=0.05)
+    assert tebd.pt.cyclic
+    # the wrap bond was gated: it carries more than the product state's 1
+    psi = tebd.pt
+    assert psi.bond_size(5, 0) > 1
     H = quimb_torch.MPO_ham_heis(6, cyclic=True, device=CPU)
     assert H.cyclic
-    with pytest.raises(NotImplementedError, match="item 14"):
-        quimb_torch.DMRG2(H, cyclic_mode="segmented")
+    assert quimb_torch.DMRG2(H, cyclic_mode="segmented")._cyc is not None
     assert not quimb_torch.DMRG2(H, cyclic_mode="obc").ham.cyclic
 
 
@@ -412,3 +420,39 @@ def test_tol_chooses_the_time_step():
     t.update_to(0.4)
     assert t.dt == pytest.approx(j.dt, rel=1e-14)
     assert t.err == pytest.approx(j.err, rel=1e-12) and t.err < 1e-3
+
+
+@pytest.fixture
+def one_thread():
+    """One torch thread for a test of hundreds of small steps, which
+    threads only slow down beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("imag", [False, True])
+def test_ring_evolution_matches(imag, one_thread):
+    """TEBD on a 6-site ring, from the cyclic Néel state, two order-4
+    steps of 0.05 bond by bond on the cyclic MPS (the wrap bond in the odd
+    sweeps): real time in complex128, imaginary time in float64. Every
+    bond entropy and ``err`` (Trotter estimate plus the split errors)
+    match quimb_tpu's to 1e-10: the same sequence of reduce-split moves
+    and float64 / complex128 SVDs, round-off apart."""
+    L = 6
+    dtype = "float64" if imag else "complex128"
+    kw = dict(split_opts={"max_bond": 8, "cutoff": 1e-10}, imag=imag)
+    jt_ = qtn.TEBD(qtn.MPS_neel_state(L, cyclic=True, dtype=dtype),
+                   qtn.ham_1d_heis(L, cyclic=True), progbar=False, **kw)
+    jt_.update_to(0.1, dt=0.05, order=4)
+    tt_ = quimb_torch.TEBD(
+        quimb_torch.MPS_neel_state(L, cyclic=True, dtype=getattr(
+            torch, dtype), device=CPU),
+        quimb_torch.ham_1d_heis(L, cyclic=True), **kw)
+    tt_.update_to(0.1, dt=0.05, order=4)
+    assert tt_.pt.cyclic and tt_.pt.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose([tt_.entropy(i) for i in range(1, L)],
+                               [jt_.entropy(i) for i in range(1, L)],
+                               atol=1e-10)
+    assert abs(tt_.err - jt_.err) <= 1e-10 * max(abs(jt_.err), 1e-12)

@@ -205,8 +205,9 @@ def test_dmrg_from_objects(bsz):
 
 
 def test_dmrg_cyclic_and_default_start():
-    """A ring Hamiltonian runs in its open form (``to_obc``) and reaches
-    the ring's ground energy; the ring engine raises naming item 14(c).
+    """A short ring Hamiltonian runs in its open form (``to_obc``) and
+    reaches the ring's ground energy; a ring of 40 sites takes the ring
+    engine (once left out naming item 14(c)), from a cyclic start state.
     With no start state the engine draws one with the MPO's ids."""
     H = quimb_torch.MPO_ham_heis(6, cyclic=True, device=CPU)
     d = quimb_torch.DMRG2(H, bond_dims=[8, 16], cutoffs=1e-12)
@@ -214,9 +215,10 @@ def test_dmrg_cyclic_and_default_start():
     d.solve(tol=1e-10, max_sweeps=8)
     assert d.energy == pytest.approx(_exact_e(6, cyclic=True), abs=1e-8)
     assert d.state.site_ind_id == H.upper_ind_id
-    with pytest.raises(NotImplementedError, match=r"item 14\(c\)"):
-        quimb_torch.DMRG2(quimb_torch.MPO_ham_heis(40, cyclic=True,
-                                                   device=CPU))
+    ring = quimb_torch.DMRG2(quimb_torch.MPO_ham_heis(40, cyclic=True,
+                                                      device=CPU))
+    assert ring._cyc is not None and ring.ham.cyclic
+    assert ring.state.cyclic and ring.state.site_ind_id == H.upper_ind_id
 
 
 def test_dmrgx_matches():
