@@ -16,7 +16,8 @@ ParallelDMRG from that state; DMRG2 on a float64 state, with every matvec
 in the hand-written FP64 tensor-core (DMMA) kernel, then DMRG1 from that
 state. Then the MPS / MPO object layer on that state, the TEBD quench,
 the exact 20-qubit core, the 53-qubit circuit as a lazy network and as
-an MPS, and the 16x16 PEPS. Its phases, each fatal on failure:
+an MPS, the 16x16 PEPS, the rings, JacobiDMRG and the arbitrary-geometry
+layer. Its phases, each fatal on failure:
 
 1. the device: a CUDA GPU is required; its name and power limit are
    printed;
@@ -169,9 +170,9 @@ an MPS, and the 16x16 PEPS. Its phases, each fatal on failure:
    of the ring a segment, cutoff 1e-10): the energy within 1e-3 relative
    of ``heisenberg_energy(150)``, the state cyclic, every closure rank at
    most 128, <psi|psi> within 1e-2 of 1; seconds, closure ranks and host
-   reads a sweep; (b) phase 10's quench on a 64-site ring (complex128,
-   bond by bond): the 20 entropies within 1e-7 and ``err`` within 1e-2
-   relative of quimb_tpu's complex128 CPU run
+   reads a sweep; (b) the first 5 steps of phase 10's quench on a 64-site
+   ring (complex128, bond by bond): the 5 entropies within 1e-7 and
+   ``err`` within 1e-2 relative of quimb_tpu's complex128 CPU run
    (``scripts/slice11_reference.py``); seconds a step;
 19. the rest of the 2D layer: (a) phase 16's float64 state, scaled so
    that its norm is close to 1, contracted at chi=32 by the "mps" and
@@ -179,10 +180,36 @@ an MPS, and the 16x16 PEPS. Its phases, each fatal on failure:
    outgrow the card), each timed and held to the "mps" value and to
    quimb_tpu's value within 1e-8; (b)
    FullUpdate (ALS) and SimpleUpdate of the 4x4 Heisenberg model at D=3,
-   chi=32 from ``default_rng(42)`` start arrays, 6 steps at tau=0.3 then
-   6 at 0.1: FullUpdate's energy below SimpleUpdate's and within 1e-8
+   chi=32 from ``default_rng(42)`` start arrays, 3 steps at tau=0.3 then
+   3 at 0.1: FullUpdate's energy below SimpleUpdate's and within 1e-8
    relative of quimb_tpu's; seconds and host syncs a gate, peak
-   allocation. No phase from 17 on launches a sandwich kernel.
+   allocation;
+20. (after phase 17) ``JacobiDMRG`` from the float64 DMRG2 state (L=128,
+   chi=256), one sweep with the damped solves of quimb_tpu's own test of
+   the engine (ncv=2): the state finite float64 on the card, its host
+   <psi|psi> within 1e-8 of 1; printed, not gated, its host energy's
+   distance from the DMRG2 start and from E_REF (the brickwork
+   iteration's fixed point does not hold, in quimb_tpu as in the port),
+   the sweep's seconds, peak allocation and the busy share over one
+   half-sweep;
+21. the arbitrary-geometry layer: (a) ``SimpleUpdateGen`` of the kagome
+   Heisenberg antiferromagnet (``edges_2d_kagome(6, 6)``, 108 sites, D=4,
+   float64, start arrays from ``default_rng(42)``, ten steps at each of
+   tau = 0.3, 0.1, 0.03) through entry points with no device, its energy
+   per site by ``compute_local_expectation(method="cluster")`` within
+   1e-6 relative of quimb_tpu's from ``scripts/slice12_reference.py``;
+   seconds a step, gates a second, host syncs a gate, busy share, peak
+   allocation; (b) phase 16's state scaled to a norm near 1, its direct
+   sum with itself (``add_PEPS``, checked block by block), and
+   ``tensor_network_2d_compress`` by ``"local-early"`` and
+   ``"superorthogonal"`` of the sum to bond 3 (timed and checked for its
+   bond: its degenerate spectra make the kept half a matter of rounding)
+   and of the state to bond 2, whose normalised overlap with the state by
+   the boundary at chi=32 lies within 1e-8 relative of quimb_tpu's value;
+   (c) <Z_q> of all 16 qubits of phase 16's
+   circuit by ``CircuitPEPOSimpleUpdate`` at bond 8 (quimb_tpu's smallest
+   exact bond) within 1e-10 of the port's ``Circuit``. No phase from 17
+   on launches a sandwich kernel.
 
 The line before the last is the kernels' JSON summary, one entry per
 kernel with its launches on its paths (DMRG2 and ParallelDMRG for
@@ -192,9 +219,9 @@ the same product) and its bound. The exact core runs no hand-written
 kernel: its matvec is plain PyTorch, measured in phase 11; nor do the
 circuit, the MPS layer and the PEPS: quimb_tpu's have no Pallas kernel,
 and their products run as batched ``matmul``, QR and SVD on the card;
-nor do complex DMRG, the rings, HOTRG, CTMRG and FullUpdate (quimb_tpu
-runs them on its einsum, QR, SVD and eigh). The last line is
-``{"ok": true, "device": {...}}``.
+nor do complex DMRG, the rings, HOTRG, CTMRG, FullUpdate, JacobiDMRG and
+the arbitrary-geometry layer (quimb_tpu runs them on its einsum, QR, SVD,
+Cholesky and eigh). The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -205,6 +232,7 @@ import re
 import statistics
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -1992,7 +2020,9 @@ PEPS_QTPU_E_SIMPLE = -155.9586345760443
 PEPS_QTPU_GAUGE_SUM = 565.0163438354033
 PEPS_E_TOL, PEPS_GAUGE_TOL, PEPS_SIMPLE_TOL = 1e-6, 1e-6, 1e-8
 PEPS_F32_SIMPLE_TOL = 1e-4
-PEPS_WINDOW = 3
+# the boundary steps of the energy's profiled window (three steps gave
+# 190,000 device activities, which took the profiler about 20 s)
+PEPS_WINDOW = 1
 # printed beside the result, not gated: two artifacts that never ran one
 # protocol with quimb_tpu (VERDICT.md:130-138)
 PEPS_ARTIFACTS = (
@@ -2174,20 +2204,8 @@ def _syncs(fn):
 def run_circuit_peps():
     """A 4x4 random circuit as a CircuitPEPS with a bond limit that keeps
     it exact, against the port's exact Circuit, both on the card."""
-    rng = np.random.default_rng(CPEPS_SEED)
-    n, Ly = CPEPS_L * CPEPS_L, CPEPS_L
-    pairs = [[], [], [], []]  # horizontal even / odd, vertical even / odd
-    for i in range(CPEPS_L):
-        for j in range(Ly):
-            q = i * Ly + j
-            if j + 1 < Ly:
-                pairs[j % 2].append((q, q + 1))
-            if i + 1 < CPEPS_L:
-                pairs[2 + i % 2].append((q, q + Ly))
-    gates = []
-    for _ in range(CPEPS_DEPTH):
-        gates += [("U3", *rng.uniform(0, 2 * np.pi, 3), q) for q in range(n)]
-        gates += [("CZ", *pq) for cls in pairs for pq in cls]
+    gates, rng = circuit_peps_gates()
+    n = CPEPS_L * CPEPS_L
     cp = quimb_torch.CircuitPEPS(CPEPS_L, max_bond=CPEPS_BOND,
                                  cutoff=CPEPS_CUTOFF)
     _, secs = _timed(lambda: cp.apply_gates(gates))
@@ -2497,23 +2515,25 @@ def run_ring_dmrg():
           flush=True)
 
 
-# bounds of phase 18(b) against quimb_tpu's complex128 run on a CPU: the
-# largest distance of the 20 entropies (the port's card run reads 3.7e-9
-# from its CPU run), and err relative. On the sequential path err adds
-# every split's discarded norm to the Trotter estimate: 9600 tails of the
-# smallest singular values kept, whose relative error is the state's
-# over their size (2.7e-3 between the port's card and CPU runs)
-RING_TEBD_ENT_TOL, RING_TEBD_ERR_TOL = 1e-7, 1e-2
+# phase 18(b) runs the first RING_TEBD_STEPS of phase 10's 20 steps (steps
+# 6-20 took 98 s of the 20-step phase's 115 s on an H100); the bounds
+# against quimb_tpu's complex128 run on a CPU: the largest distance of the
+# entropies (over 20 steps the port's card run read 3.7e-9 from its CPU
+# run), and err relative. On the sequential path err adds every split's
+# discarded norm to the Trotter estimate: 480 tails a step of the
+# smallest singular values kept, whose relative error is the state's over
+# their size (2.7e-3 between the port's card and CPU runs over 20 steps)
+RING_TEBD_STEPS, RING_TEBD_ENT_TOL, RING_TEBD_ERR_TOL = 5, 1e-7, 1e-2
 
 
 def run_ring_tebd():
-    """Phase 18(b): phase 10's quench on a ring of TEBD_L sites, complex128,
-    bond by bond on the cyclic MPS, through the entry points with no
-    device."""
+    """Phase 18(b): the first RING_TEBD_STEPS steps of phase 10's quench on
+    a ring of TEBD_L sites, complex128, bond by bond on the cyclic MPS,
+    through the entry points with no device."""
     t_phase = time.perf_counter()
     ref = _slice11_reference("ring_tebd")
     if (ref["L"], ref["chi"], ref["steps"], ref["dt"], ref["cutoff"]) != (
-            TEBD_L, TEBD_CHI, TEBD_STEPS, TEBD_DT, TEBD_CUTOFF):
+            TEBD_L, TEBD_CHI, RING_TEBD_STEPS, TEBD_DT, TEBD_CUTOFF):
         raise AssertionError(f"{SLICE11_REF} holds another ring quench")
     psi0 = quimb_torch.MPS_neel_state(TEBD_L, cyclic=True,
                                       dtype=torch.float64)
@@ -2522,7 +2542,7 @@ def run_ring_tebd():
     tebd = quimb_torch.TEBD(psi0, H, split_opts={"max_bond": TEBD_CHI,
                                                  "cutoff": TEBD_CUTOFF})
     entropies, seconds = [], []
-    for k in range(1, TEBD_STEPS + 1):
+    for k in range(1, RING_TEBD_STEPS + 1):
         t0 = time.perf_counter()
         tebd.update_to(k * TEBD_DT, dt=TEBD_DT)
         torch.cuda.synchronize()
@@ -2538,7 +2558,7 @@ def run_ring_tebd():
     dist = np.abs(np.asarray(entropies) - np.asarray(ref["entropies"]))
     rel_err = abs(tebd.err - ref["err"]) / abs(ref["err"])
     print(f"ring TEBD: {statistics.mean(seconds):.4f} s a step (mean of "
-          f"{TEBD_STEPS}); entropies against quimb_tpu's: max "
+          f"{RING_TEBD_STEPS}); entropies against quimb_tpu's: max "
           f"{dist.max():.3e} (bound {RING_TEBD_ENT_TOL:.0e}); err "
           f"{tebd.err!r} against {ref['err']!r}, relative {rel_err:.3e} "
           f"(bound {RING_TEBD_ERR_TOL:.0e}); bonds {max(pt.bond_sizes())}; "
@@ -2569,7 +2589,7 @@ NORM_MPS_TOL = {"mps": 0.0, "full_bond": 3e-4, "ctmrg": 2e-2,
 HOTRG_CHI = 16
 # FullUpdate: the lattice and schedule of scripts/slice11_reference.py, and
 # the bound on the energy's distance from quimb_tpu's float64 value
-FU_L, FU_D, FU_CHI, FU_SCHEDULE = 4, 3, 32, ((6, 0.3), (6, 0.1))
+FU_L, FU_D, FU_CHI, FU_SCHEDULE = 4, 3, 32, ((3, 0.3), (3, 0.1))
 FU_E_TOL = 1e-8
 
 
@@ -2687,6 +2707,316 @@ def run_full_update():
     if sum(ck.LAUNCHES.values()):
         raise AssertionError("FullUpdate launched a sandwich kernel")
 
+# -- phase 20: JacobiDMRG at the north star ------------------------------------
+
+# one sweep with the damped local solves of quimb_tpu's own test of the
+# engine (tests/test_tensor/test_dmrg_parallel.py::TestJacobiDMRG: ncv=2,
+# the other defaults stride=2, oversample=16, power_iters=3), and the bound
+# on <psi|psi> of the renormalised stack, read on the host in float64. The
+# engine's fixed point does not hold, in quimb_tpu as in the port (ROADMAP
+# section 3, scripts/jacobi_fixed_point.py): three default (ncv=8) sweeps
+# of a converged L=32, chi=32 chain rise 1.05e-3 in both on a CPU, and at
+# L=128, chi=256 one ncv=2 sweep rises 2.65e-2 in quimb_tpu (on a CPU) and
+# 2.64e-2 in the port (on the card) from the same state. The energy's
+# distance from the DMRG2 start and from E_REF is printed, not gated, and
+# no later sweep runs (a diverging sweep can meet a norm environment that
+# is not positive definite)
+JAC_NCV, JAC_NORM_TOL = 2, 1e-8
+
+
+def run_jacobi(dmrg2):
+    """Phase 20: JacobiDMRG from the float64 DMRG2 state (L=128, chi=256,
+    the same MPO), one sweep with the damped solves of quimb_tpu's test of
+    the engine, read back on the host."""
+    from quimb_torch.tensor.tn1d.dmrg_jacobi import (
+        JacobiDMRG, _jacobi_halfsweep)
+
+    t_phase = time.perf_counter()
+    H = dmrg2.ham
+    e0 = host_f64_energy(dmrg2.state, H)
+    _reset_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    jd, secs = _timed(lambda: JacobiDMRG(dmrg2.state, H, max_bond=CHI,
+                                         ncv=JAC_NCV))
+    print(f"JacobiDMRG L={L}, chi={CHI}, ncv={JAC_NCV}: stacks "
+          f"{tuple(jd.Ms.shape)} {jd.Ms.dtype} built in {secs:.3f} s",
+          flush=True)
+    # a half-sweep of the start state under the profiler (its result is
+    # dropped)
+    share, top, wall_us, count = _busy_share(lambda: _jacobi_halfsweep(
+        jd.Ms, jd.Ws, 0, jd.ncv, jd.chi, stride=jd.stride,
+        oversample=jd.oversample, power_iters=jd.power_iters))
+    print(f"one even half-sweep under torch.profiler: {wall_us / 1e6:.3f} s "
+          f"wall, {count} device activities, busy share "
+          + ("not measured" if share is None else f"{share:.4f}"),
+          flush=True)
+    for name, us in top:
+        print(f"  {us / 1e3:.3f} ms  {name[:100]}", flush=True)
+    en, secs = _timed(jd.sweep)
+    peak = torch.cuda.max_memory_allocated() - base
+    psi = jd.get_state()
+    As = _arrays(psi)
+    if not all(A.is_cuda and A.dtype == torch.float64
+               and bool(torch.isfinite(A).all()) for A in As):
+        raise AssertionError("the Jacobi state left the card, or is not "
+                             "finite float64")
+    eh, nrm = host_f64_sweep(psi, H)
+    e = eh / nrm
+    rel = abs(e - E_REF) / abs(E_REF)
+    print(f"JacobiDMRG sweep: {secs:.3f} s, mean Ritz energy {en!r}; peak "
+          f"allocation {peak / 1e9:.3f} GB; host float64 <psi|psi> {nrm!r} "
+          f"(bound {JAC_NORM_TOL:.0e} from 1); not gated: host energy "
+          f"{e!r}, {e - e0:+.3e} from the DMRG2 start {e0!r}, {rel:.3e} "
+          f"relative to E_REF", flush=True)
+    if not (math.isfinite(en) and abs(nrm - 1) <= JAC_NORM_TOL):
+        raise AssertionError("the Jacobi sweep lost the state's norm")
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError("JacobiDMRG launched a sandwich kernel")
+    print(f"JacobiDMRG phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+# -- phase 21: the arbitrary-geometry layer ------------------------------------
+
+# quimb_tpu's float64 values of phase 21, from
+# ``python scripts/slice12_reference.py`` on a CPU (see its docstring)
+SLICE12_REF = "scripts/slice12_reference.json"
+# the kagome Heisenberg antiferromagnet: the open 6 x 6 lattice (108
+# sites), D=4, ten imaginary-time steps at each tau; the bound on the
+# energy per site relative to quimb_tpu's from the same start arrays
+KAGOME_L, KAGOME_D, KAGOME_NITS, KAGOME_TAUS = 6, 4, 10, (0.3, 0.1, 0.03)
+KAGOME_E_TOL, KAGOME_THREADS = 1e-6, 4
+# <Z_q> of phase 16's 4x4 circuit by CircuitPEPOSimpleUpdate, against the
+# port's exact Circuit on the card
+CPEPO_TOL = 1e-10
+
+
+def _slice12_reference(part):
+    return json.loads(Path(SLICE12_REF).read_text())[part]
+
+
+def run_kagome():
+    """Phase 21(a): SimpleUpdateGen of the kagome Heisenberg model through
+    the entry points with no device, and its cluster energy."""
+    t_phase = time.perf_counter()
+    ref = _slice12_reference("kagome")
+    if (ref["L"], ref["D"], ref["nits"], tuple(ref["taus"])) != (
+            KAGOME_L, KAGOME_D, KAGOME_NITS, KAGOME_TAUS):
+        raise AssertionError(f"{SLICE12_REF} holds another kagome run")
+    edges = quimb_torch.edges_2d_kagome(KAGOME_L, KAGOME_L)
+    rng = np.random.default_rng(42)
+    psi0 = quimb_torch.TN_from_edges_and_fill_fn(
+        lambda shape: rng.standard_normal(shape), edges, KAGOME_D,
+        phys_dim=2)
+    ham = quimb_torch.ham_gen_heis(edges)
+    if not all(t.data.is_cuda and t.dtype == torch.float64 for t in psi0):
+        raise AssertionError("the kagome state is not float64 on the card")
+    _reset_launches()
+    su = quimb_torch.SimpleUpdateGen(psi0, ham, D=KAGOME_D,
+                                     compute_energy_final=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    nb = len(ham.terms)
+    with _counted_syncs() as syncs:
+        _, secs = _timed(lambda: su.evolve(1, tau=KAGOME_TAUS[0]))
+    for k, tau in enumerate(KAGOME_TAUS):
+        _, t = _timed(lambda: su.evolve(KAGOME_NITS - (k == 0), tau=tau))
+        secs += t
+    steps = KAGOME_NITS * len(KAGOME_TAUS)
+    print(f"SimpleUpdateGen kagome {KAGOME_L}x{KAGOME_L} ({psi0.nsites} "
+          f"sites, {nb} bonds), D={KAGOME_D}: {steps} steps in {secs:.3f} s, "
+          f"{secs / steps:.4f} s a step, {steps * nb / secs:.1f} gates a "
+          f"second; {len(syncs) / nb:.2f} host syncs a gate "
+          f"({sorted(set(syncs))[:3]})", flush=True)
+    # compute_local_expectation(method="cluster") in its two stages: the
+    # simple gauges of the state, then the clusters, their host work
+    # overlapped by a thread pool
+    psi = su.get_state()
+    # the busy share over one gauging iteration of a copy (a whole step,
+    # 121,339 device activities, took the profiler seconds to process)
+    share, top, wall_us, count = _busy_share(
+        lambda: psi.gauge_all_simple(max_iterations=1, gauges={}))
+    print(f"one gauge_all_simple iteration ({nb} bond splits, the gate's "
+          f"operations) under torch.profiler: {wall_us / 1e6:.3f} s wall, "
+          f"{count} device activities, busy share "
+          + ("not measured" if share is None else f"{share:.4f}"),
+          flush=True)
+    for name, us in top:
+        print(f"  {us / 1e3:.3f} ms  {name[:100]}", flush=True)
+    gauges = {}
+    tn, gsecs = _timed(lambda: psi.gauge_all_simple(gauges=gauges))
+    with ThreadPoolExecutor(KAGOME_THREADS) as ex:
+        e, csecs = _timed(lambda: tn.compute_local_expectation(
+            ham.terms, method="cluster", gauges=gauges, executor=ex))
+    esecs = gsecs + csecs
+    peak = torch.cuda.max_memory_allocated() - base
+    e_site = float(np.real(e)) / psi0.nsites
+    rel = abs(e_site - ref["energy_per_site"]) / abs(ref["energy_per_site"])
+    print(f"kagome cluster energy: {esecs:.3f} s (gauges {gsecs:.3f} s, "
+          f"{nb} clusters on {KAGOME_THREADS} threads {csecs:.3f} s); "
+          f"E/site {e_site!r}, "
+          f"quimb_tpu's {ref['energy_per_site']!r} (its host run "
+          f"{ref['seconds']:.1f} s), relative {rel:.3e} (bound "
+          f"{KAGOME_E_TOL:.0e}); peak allocation {peak / 1e9:.4f} GB",
+          flush=True)
+    if not all(t.data.is_cuda for t in su.state):
+        raise AssertionError("SimpleUpdateGen left the card")
+    if not rel <= KAGOME_E_TOL:
+        raise AssertionError("the kagome energy misses quimb_tpu's")
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError("SimpleUpdateGen launched a sandwich kernel")
+    print(f"kagome phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# the 2D compressions of phase 21(b): the methods, and for each the
+# cases (state, max_bond) of scripts/slice12_reference.py; the bound on
+# the normalised overlap with psi relative to quimb_tpu's value of the same
+# protocol, for the truncation of psi to bond 2 (non-degenerate spectra).
+# phi = psi + psi to bond 3 is timed and checked for its bond, not
+# contracted: each bond's spectrum there is doubly degenerate, and which
+# half of each pair a truncation keeps rests on the SVD's rounding (on the
+# card the overlaps read 0.8784 and 0.3872 against quimb_tpu's 0.8783 and
+# 0.4763 on a CPU)
+COMPRESS_METHODS = ("local-early", "superorthogonal")
+COMPRESS_CASES = (("phi", 3), ("psi", 2))
+COMPRESS_TOL = 1e-8
+
+
+def _compress_fidelity(c, psi, psi_norm):
+    """``|<c|psi>| / (|c| |psi|)`` by the boundary method at PEPS_CHI, each
+    site tensor of ``c`` first scaled to the norm of ``psi``'s (the
+    fidelity of scripts/slice12_reference.py)."""
+    for site in psi.site_tags:
+        (tc,), (tp,) = c.select_tensors(site), psi.select_tensors(site)
+        f = torch.linalg.norm(tp.data) / torch.linalg.norm(tc.data)
+        tc.modify(apply=lambda d, f=f: d * f)
+    cp = complex(psi.make_overlap(c).view_like_(psi).contract_boundary(
+        max_bond=PEPS_CHI))
+    cc = complex(c.make_norm().contract_boundary(max_bond=PEPS_CHI))
+    return abs(cp) / math.sqrt(abs(cc) * abs(psi_norm))
+
+
+def run_2d_compress(psi16):
+    """Phase 21(b): the 16x16 float64 state scaled to norm close to 1, its
+    direct sum with itself, and 2D compressions of both by the two methods,
+    each held by its normalised overlap with the state."""
+    t_phase = time.perf_counter()
+    ref = _slice12_reference("compress")
+    if (ref["L"], ref["D"], ref["chi"]) != (PEPS_L, PEPS_D, PEPS_CHI):
+        raise AssertionError(f"{SLICE12_REF} holds other compressions")
+    _reset_launches()
+    psi = unit_state(psi16.copy(), PEPS_CHI)
+    psi_norm, secs = _timed(lambda: complex(psi.make_norm().contract_boundary(
+        max_bond=PEPS_CHI)))
+    print(f"<psi|psi> by the boundary at {PEPS_CHI}: {psi_norm.real!r} "
+          f"({secs:.3f} s), quimb_tpu's {ref['psi_norm']!r}", flush=True)
+    phi, secs = _timed(lambda: psi.add_PEPS(psi))
+    # the direct sum, exactly: each site tensor of phi holds psi's in the
+    # diagonal blocks of its bonds and zeros elsewhere
+    worst = 0.0
+    for site in psi.site_tags:
+        (tp,), (tf,) = psi.select_tensors(site), phi.select_tensors(site)
+        A, F = tp.data, tf.transpose(*tp.inds).data
+        blocks = [slice(None) if ix in psi.site_inds else None
+                  for ix in tp.inds]
+        lo = tuple(s or slice(0, n) for s, n in zip(blocks, A.shape))
+        hi = tuple(s or slice(n, 2 * n) for s, n in zip(blocks, A.shape))
+        rest = F.clone()
+        rest[lo] = 0.0
+        rest[hi] = 0.0
+        worst = max(worst, float((F[lo] - A).abs().max()),
+                    float((F[hi] - A).abs().max()), float(rest.abs().max()))
+    print(f"add_PEPS: {secs:.3f} s, bonds {phi.max_bond()}; the blocks' "
+          f"largest distance from psi {worst:.1e} (bound 0)", flush=True)
+    if not (worst == 0.0 and phi.max_bond() == 2 * PEPS_D
+            and all(t.data.is_cuda for t in phi)):
+        raise AssertionError("add_PEPS is not the direct sum on the card")
+    for method in COMPRESS_METHODS:
+        for which, mb in COMPRESS_CASES:
+            src = phi if which == "phi" else psi
+            c, secs = _timed(lambda: quimb_torch.tensor_network_2d_compress(
+                src, max_bond=mb, method=method))
+            want = ref[f"{method} {which} {mb}"]
+            print(f"{method} {which} -> {mb}: {secs:.3f} s (quimb_tpu's "
+                  f"host run {want['compress_seconds']:.1f} s), bonds "
+                  f"{c.max_bond()}", flush=True)
+            if not (c.max_bond() == mb and all(t.data.is_cuda for t in c)):
+                raise AssertionError(f"{method} left the card or the bond")
+            if which == "phi":
+                continue
+            f, fsecs = _timed(lambda: _compress_fidelity(c, psi, psi_norm))
+            rel = abs(f - want["fidelity"]) / want["fidelity"]
+            print(f"  normalised overlap with psi {f!r} ({fsecs:.3f} s), "
+                  f"quimb_tpu's {want['fidelity']!r}, relative {rel:.3e} "
+                  f"(bound {COMPRESS_TOL:.0e})", flush=True)
+            if not rel <= COMPRESS_TOL:
+                raise AssertionError(f"{method} misses quimb_tpu's overlap")
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError("the 2D compressions launched a sandwich "
+                             "kernel")
+    print(f"2D compression phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def circuit_peps_gates():
+    """The gates of the 4x4 circuit of phase 16 (and of
+    scripts/slice12_reference.py's ``cpeps_gates``) and the generator that
+    drew them."""
+    rng = np.random.default_rng(CPEPS_SEED)
+    n, Ly = CPEPS_L * CPEPS_L, CPEPS_L
+    pairs = [[], [], [], []]  # horizontal even / odd, vertical even / odd
+    for i in range(CPEPS_L):
+        for j in range(Ly):
+            q = i * Ly + j
+            if j + 1 < Ly:
+                pairs[j % 2].append((q, q + 1))
+            if i + 1 < CPEPS_L:
+                pairs[2 + i % 2].append((q, q + Ly))
+    gates = []
+    for _ in range(CPEPS_DEPTH):
+        gates += [("U3", *rng.uniform(0, 2 * np.pi, 3), q) for q in range(n)]
+        gates += [("CZ", *pq) for cls in pairs for pq in cls]
+    return gates, rng
+
+
+def run_circuit_pepo():
+    """Phase 21(c): <Z_q> of every qubit of phase 16's 4x4 circuit by
+    CircuitPEPOSimpleUpdate at the bond of quimb_tpu's exact run, against
+    the port's Circuit, both on the card."""
+    ref = _slice12_reference("circuit_pepo")
+    if (ref["L"], ref["depth"], ref["seed"]) != (CPEPS_L, CPEPS_DEPTH,
+                                                 CPEPS_SEED):
+        raise AssertionError(f"{SLICE12_REF} holds another circuit")
+    _reset_launches()
+    gates, _ = circuit_peps_gates()
+    n = CPEPS_L * CPEPS_L
+    Z = np.diag([1.0, -1.0])
+    cp = quimb_torch.CircuitPEPOSimpleUpdate(N=n, max_bond=ref["max_bond"])
+    cp.apply_gates(gates)
+    exact = quimb_torch.Circuit(N=n)
+    exact.apply_gates(gates)
+    if not all(U.is_cuda for U, _ in cp._recorded):
+        raise AssertionError("CircuitPEPOSimpleUpdate's gates are not on "
+                             "the card")
+    got, secs = _timed(lambda: [complex(cp.local_expectation(Z, q)).real
+                                for q in range(n)])
+    want = [complex(exact.local_expectation(Z, q)).real for q in range(n)]
+    dist = max(abs(a - b) for a, b in zip(got, want))
+    dq = max(abs(a - b) for a, b in zip(got, ref["z"]))
+    print(f"CircuitPEPOSimpleUpdate {CPEPS_L}x{CPEPS_L}, depth "
+          f"{CPEPS_DEPTH}, max_bond {ref['max_bond']}: {n} <Z_q> in "
+          f"{secs:.3f} s ({secs / n:.4f} s each); largest distance from the "
+          f"port's Circuit {dist:.3e} (bound {CPEPO_TOL:.0e}), from "
+          f"quimb_tpu's values {dq:.3e}", flush=True)
+    if not dist <= CPEPO_TOL:
+        raise AssertionError("CircuitPEPOSimpleUpdate misses Circuit")
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError("CircuitPEPOSimpleUpdate launched a sandwich "
+                             "kernel")
+
 
 def main():
     t_start = time.perf_counter()
@@ -2706,6 +3036,7 @@ def main():
     run_mps_layer(dmrg)
     torch.cuda.empty_cache()
     run_complex_dmrg(dmrg)
+    run_jacobi(dmrg)
     del dmrg
     for dtype in TEBD_REAL:
         run_tebd_path(dtype)
@@ -2722,9 +3053,12 @@ def main():
     run_ring_tebd()
     t_2d = time.perf_counter()
     run_peps_norms(psi16)
+    run_2d_compress(psi16)
     del psi16
     run_full_update()
     print(f"2D layer phase: {time.perf_counter() - t_2d:.1f} s", flush=True)
+    run_kagome()
+    run_circuit_pepo()
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{

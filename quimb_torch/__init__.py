@@ -16,7 +16,11 @@ circuit simulator ``Circuit`` and the MPS simulators ``CircuitMPS``,
 ``PEPS``, ``PEPO``, their builders, boundary contraction, environments and
 local expectations, HOTRG and CTMRG contractions, the ``ham_2d_*``
 Hamiltonians, ``SimpleUpdate`` (fused colour-class sweeps on the device),
-``FullUpdate`` and ``TEBD2D``, and ``CircuitPEPS``. DMRG sweeps a ring of
+``FullUpdate`` and ``TEBD2D``, and ``CircuitPEPS``. And the
+arbitrary-geometry layer: the lattice edge generators (``edges_*``),
+``TensorNetworkGen`` / ``GenVector`` / ``GenOperator`` with their builders
+(``TN_from_edges_*``), compressions, ``TEBDGen`` and ``SimpleUpdateGen``,
+and ``CircuitPEPOSimpleUpdate``. DMRG sweeps a ring of
 40 sites or more with its segmented engine, and TEBD evolves rings too;
 ``heisenberg_energy`` is the Heisenberg chain's scaling formula.
 Every builder and entry point

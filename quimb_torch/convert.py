@@ -7,7 +7,8 @@ layout of the DMRG engine, MPO tensors ``(wl, wr, u, d)`` and MPS tensors
 Hamiltonian of the exact layer crosses as its scipy matrix; a tensor or
 a tensor network crosses with its arrays read as numpy arrays and its
 ``inds`` and ``tags`` kept; a circuit crosses as its list of gates; a PEPS or PEPO
-crosses like an MPS, and a SimpleUpdate's gauge dict as its vectors.
+crosses like an MPS, and a SimpleUpdate's gauge dict as its vectors; an
+arbitrary-geometry network crosses with its class and its site ids.
 Tensors land on ``device``, the GPU unless the caller names another.
 """
 
@@ -96,6 +97,25 @@ def from_tpu_gauges(gauges, device=None, dtype=None):
     return {tuple(map(tuple, k)): to_device(np.asarray(v), device=device,
                                              dtype=dtype)
             for k, v in gauges.items()}
+
+
+def from_tpu_tngen(tn, device=None, dtype=None):
+    """A quimb_tpu ``TensorNetworkGen``, ``TensorNetworkGenVector`` or
+    ``TensorNetworkGenOperator`` -> the port's class of the same name, with
+    the same tensors (in the same order, so the same bond order), index
+    names, tags, ``sites``, ``site_tag_id`` and ``site_ind_id`` (or upper
+    and lower index ids), its arrays read as numpy arrays."""
+    from .tensor.core import Tensor, TensorNetwork
+    from .tensor.tnag import core as ag
+
+    cls = getattr(ag, type(tn).__name__)
+    ids = {ep.lstrip("_"): getattr(tn, ep) for ep in cls._EXTRA_PROPS}
+    device = resolve_device(device)
+    new = TensorNetwork([
+        Tensor(to_device(np.asarray(t.data), device=device, dtype=dtype),
+               inds=tuple(t.inds), tags=tuple(t.tags))
+        for t in tn.tensor_map.values()], virtual=True)
+    return new.view_as_(cls, **ids)
 
 
 def from_tpu_arrays(Ws, As, device=None, dtype=None):

@@ -296,6 +296,9 @@ class ContractExpression:
 
 
 _EXPR_CACHE = LRU(2**12)
+# a read of the LRU reorders it: threads that contract at once (a local
+# expectation's terms under an executor) take turns with the cache
+_EXPR_LOCK = threading.Lock()
 
 
 def _preprocess_single(array, term):
@@ -342,13 +345,15 @@ def array_contract_expression(
         tuple(c_sizes[k] for k in range(len(remap))), hashable_opt,
     )
     if cache:
-        expr = _EXPR_CACHE.get(key)
+        with _EXPR_LOCK:
+            expr = _EXPR_CACHE.get(key)
         if expr is not None:
             return expr
     path = _paths.optimize_path(c_inputs, c_output, c_sizes, optimize)
     expr = ContractExpression(c_inputs, c_output, c_sizes, path)
     if cache:
-        _EXPR_CACHE[key] = expr
+        with _EXPR_LOCK:
+            _EXPR_CACHE[key] = expr
     return expr
 
 

@@ -1,7 +1,8 @@
 """Tensor-network algorithms of quimb_torch: the object layer (``Tensor``,
 ``TensorNetwork`` and their functions, as quimb_tpu's ``tensor/__init__.py``
 exports them), the circuit simulators, the MPS / MPO layer with the 1D
-engines that take it, and the PEPS / PEPO layer with the 2D engines."""
+engines that take it, the PEPS / PEPO layer with the 2D engines, the
+lattice edge generators and the arbitrary-geometry layer."""
 
 from ..ops.contraction import (
     array_contract,
@@ -45,10 +46,26 @@ from .core import (
     tensor_network_sum,
     tensor_split,
 )
+from .geometry import (
+    edges_1d_chain,
+    edges_2d_hexagonal,
+    edges_2d_kagome,
+    edges_2d_square,
+    edges_2d_triangular,
+    edges_2d_triangular_rectangular,
+    edges_3d_cubic,
+    edges_3d_diamond,
+    edges_3d_diamond_cubic,
+    edges_3d_pyrochlore,
+    edges_rand_reg,
+    edges_tree_rand,
+)
 from .tn1d import *  # noqa: F401,F403
 from .tn1d import __all__ as _tn1d_all
 from .tn2d import *  # noqa: F401,F403
 from .tn2d import __all__ as _tn2d_all
+from .tnag import *  # noqa: F401,F403
+from .tnag import __all__ as _tnag_all
 
 __all__ = [
     "COPY_tensor",
@@ -86,7 +103,20 @@ __all__ = [
     "inds_to_eq",
     "set_contract_backend",
     "set_contract_strategy",
+    "edges_1d_chain",
+    "edges_2d_hexagonal",
+    "edges_2d_kagome",
+    "edges_2d_square",
+    "edges_2d_triangular",
+    "edges_2d_triangular_rectangular",
+    "edges_3d_cubic",
+    "edges_3d_diamond",
+    "edges_3d_diamond_cubic",
+    "edges_3d_pyrochlore",
+    "edges_rand_reg",
+    "edges_tree_rand",
     *_circuit_all,
     *_tn1d_all,
     *_tn2d_all,
+    *_tnag_all,
 ]

@@ -1,11 +1,13 @@
 """Quantum circuit simulators (reference ``quimb/tensor/circuit/``): the
 exact lazy tensor-network ``Circuit``, the MPS simulators ``CircuitMPS``,
 ``CircuitPermMPS`` and ``CircuitMPSLazy``, the PEPS simulator
-``CircuitPEPS``, the gates and the QASM parsers."""
+``CircuitPEPS``, the Heisenberg-picture PEPO simulator
+``CircuitPEPOSimpleUpdate``, the gates and the QASM parsers."""
 
 from .core import Circuit, CircuitBase, CircuitDense
 from .mps import CircuitMPS, CircuitMPSLazy, CircuitPermMPS
 from .peps import CircuitPEPS, CircuitPEPSSimpleUpdate
+from .pepo import CircuitPEPOSimpleUpdate
 from .simple_update import CircuitSimpleUpdate
 from .gates import (
     ALL_GATES,
@@ -25,6 +27,7 @@ __all__ = [
     "CircuitMPS",
     "CircuitMPSLazy",
     "CircuitPermMPS",
+    "CircuitPEPOSimpleUpdate",
     "CircuitPEPS",
     "CircuitPEPSSimpleUpdate",
     "CircuitSimpleUpdate",

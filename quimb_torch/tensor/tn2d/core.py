@@ -28,7 +28,6 @@ from ...utils import check_opt, oset, pairwise
 from ..core import (
     Tensor,
     TensorNetwork,
-    _deferred,
     bonds,
     rand_uuid,
     tags_to_oset,
@@ -1711,9 +1710,13 @@ def _wire_peps_constructors():
     PEPS.from_fill_fn = classmethod(_peps_from_fill_fn)
 
     def _peps_add(self, other, inplace=False, **kwargs):
-        """Direct-sum add another PEPS (reference ``add_PEPS``): needs
-        ``tnag/``, not ported yet."""
-        raise _deferred(16, "PEPS.add_PEPS (tnag/core.py)")
+        """Direct-sum add another PEPS (reference ``add_PEPS``)."""
+        from ..tnag.core import tensor_network_ag_sum
+
+        return tensor_network_ag_sum(
+            self, other, site_tags=self.site_tags,
+            inplace=inplace, **kwargs,
+        )
 
     PEPS.add_PEPS = _peps_add
     PEPS.add_PEPS_ = functools.partialmethod(_peps_add, inplace=True)
@@ -1827,8 +1830,12 @@ def _pepo_zeros(cls, Lx, Ly, bond_dim, phys_dim=2, dtype=None,
 
 def _pepo_add(self, other, inplace=False):
     """Direct-sum add another PEPO (reference ``add_PEPO``
-    tn2d/core.py:5404): needs ``tnag/``, not ported yet."""
-    raise _deferred(16, "PEPO.add_PEPO (tnag/core.py)")
+    tn2d/core.py:5404)."""
+    from ..tnag.core import tensor_network_ag_sum
+
+    return tensor_network_ag_sum(
+        self, other, site_tags=self.site_tags, inplace=inplace,
+    )
 
 
 PEPO.from_fill_fn = classmethod(_pepo_from_fill_fn)

@@ -5,8 +5,9 @@ Three parts, each written under its name into
 ``scripts/slice11_reference.json`` (the other parts' entries are kept):
 
 - ``ring_tebd``: the TEBD quench of ``chip_smoke.py``'s phase 10 (the
-  Néel state, ``ham_1d_heis``, max_bond 64, cutoff 1e-10, 20 order-4
-  steps of 0.05) on a ring of 64 sites (``cyclic=True``), complex128,
+  Néel state, ``ham_1d_heis``, max_bond 64, cutoff 1e-10, order-4 steps
+  of 0.05, the first 5 of phase 10's 20) on a ring of 64 sites
+  (``cyclic=True``), complex128,
   bond by bond on the cyclic MPS: the entropy ``tebd.entropy(32)`` after
   each step and the final ``err``.
 - ``peps16_norms``: the 16x16, D=3 SimpleUpdate state of
@@ -15,8 +16,8 @@ Three parts, each written under its name into
   by ``contract_boundary`` (mode ``"mps"`` and ``"full-bond"``) and
   ``contract_ctmrg``, and at max_bond 16 by ``contract_hotrg``.
 - ``full_update``: FullUpdate (ALS) of ``ham_2d_heis(L, L)`` at D=3,
-  chi=32 from ``start_arrays(L, 3)`` (``default_rng(42)``), 6 steps at
-  tau=0.3 then 6 at 0.1, and SimpleUpdate on the same schedule from the
+  chi=32 from ``start_arrays(L, 3)`` (``default_rng(42)``), 3 steps at
+  tau=0.3 then 3 at 0.1, and SimpleUpdate on the same schedule from the
   same start; both energies by ``compute_energy()``.
 
 JAX runs on the CPU in float64, quimb_tpu's boundary contractions on host
@@ -46,12 +47,12 @@ sys.path.insert(0, HERE)
 
 OUT = os.path.join(HERE, "slice11_reference.json")
 
-RING_L, RING_CHI, RING_STEPS, RING_DT, RING_CUTOFF = 64, 64, 20, 0.05, 1e-10
+RING_L, RING_CHI, RING_STEPS, RING_DT, RING_CUTOFF = 64, 64, 5, 0.05, 1e-10
 PEPS_L, PEPS_D, PEPS_CHI, PEPS_NITS = 16, 3, 32, 30
 # HOTRG's second merges hold tensors of chi**6 entries (8 GB at chi=32,
 # more than an 80 GB card holds for a row of them): it runs at 16
 HOTRG_CHI = 16
-FU_D, FU_CHI, FU_SCHEDULE = 3, 32, ((6, 0.3), (6, 0.1))
+FU_D, FU_CHI, FU_SCHEDULE = 3, 32, ((3, 0.3), (3, 0.1))
 PARTS = ("ring_tebd", "peps16_norms", "full_update")
 NORMS = ("mps", "full_bond", "ctmrg", "hotrg")
 

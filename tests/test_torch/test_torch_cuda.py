@@ -804,3 +804,62 @@ def test_full_update_gate_on_card_matches_cpu(cuda):
                 torch.device(dev).type
             es.append(fu.compute_energy())
         assert abs(es[0] - es[1]) <= tol * abs(es[1])
+
+
+def test_jacobi_halfsweep_on_card_matches_cpu(cuda):
+    """One Jacobi half-sweep per parity (L=12, chi=16, float64, one start
+    matrix) on the card gives the CPU's Ritz energies (1e-10) and
+    site-pair products (1e-9: the whitening by Cholesky factors of the norm
+    environments amplifies the two libraries' rounding, 1.5e-10 on an H100;
+    a product carries its Ritz vector's sign, which cuSOLVER and LAPACK
+    choose apart), and launches no sandwich kernel."""
+    from quimb_torch.tensor.tn1d import dmrg_jacobi as tj
+
+    H = quimb_torch.MPO_ham_heis(12, device="cpu")
+    d = quimb_torch.DMRG2(H, bond_dims=[8, 16], cutoffs=1e-10)
+    d.solve(tol=1e-9, verbosity=0)
+    Ms = tj.mps_to_stack(d.state, 16)
+    Ws = tj.mpo_to_padded_stack(H)
+    omega = np.random.default_rng(2).standard_normal((32, 32))
+    before = dict(ck.LAUNCHES)
+    for parity in (0, 1):
+        out = {}
+        for dev in ("cpu", cuda):
+            M, e = tj._jacobi_halfsweep(Ms.to(dev), Ws.to(dev), parity, 8,
+                                        16, omega=omega)
+            assert M.device.type == torch.device(dev).type
+            out[str(dev)] = (M.cpu().numpy(), e.cpu().numpy())
+        np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=0,
+                                   atol=1e-10)
+        for i in range(parity, 11, 2):
+            pair = {k: np.einsum("kpc,cqr->kpqr", v[0][i], v[0][i + 1])
+                    for k, v in out.items()}
+            sign = np.sign(np.vdot(pair["cuda"], pair["cpu"]))
+            np.testing.assert_allclose(sign * pair["cuda"], pair["cpu"],
+                                       rtol=0, atol=1e-9)
+    assert dict(ck.LAUNCHES) == before
+
+
+def test_simple_update_gen_step_on_card_matches_cpu(cuda):
+    """Two SimpleUpdateGen steps of the Heisenberg model on a 2 x 2-cell
+    kagome lattice (D=2, float64, the same start arrays) on the card give
+    the CPU's gauges and cluster energy (1e-10)."""
+    edges = quimb_torch.edges_2d_kagome(2, 2)
+    rng = np.random.default_rng(3)
+    psi0 = quimb_torch.TN_from_edges_and_fill_fn(
+        lambda s: rng.standard_normal(s), edges, 2, phys_dim=2, device="cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        psi = psi0.copy()
+        psi.apply_to_arrays(lambda a: a.to(dev))
+        su = quimb_torch.SimpleUpdateGen(psi, quimb_torch.ham_gen_heis(edges),
+                                         D=2, compute_energy_final=False)
+        su.evolve(2, tau=0.2)
+        assert all(t.data.device.type == torch.device(dev).type
+                   for t in su.state)
+        out[str(dev)] = (su.gauges, su.compute_energy())
+    assert set(out["cuda"][0]) == set(out["cpu"][0])
+    for ix, g in out["cpu"][0].items():
+        np.testing.assert_allclose(out["cuda"][0][ix].cpu().numpy(),
+                                   g.numpy(), rtol=0, atol=1e-10)
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-10

@@ -39,6 +39,12 @@ def test_import_never_imports_jax():
         "import quimb_torch.tensor.circuit.peps\n"
         "import quimb_torch.tensor.circuit.simple_update\n"
         "import quimb_torch.calc, quimb_torch.tensor.tn1d.dmrg_cyclic\n"
+        "import quimb_torch.tensor.tn1d.dmrg_jacobi\n"
+        "import quimb_torch.tensor.geometry, quimb_torch.tensor.tnag\n"
+        "import quimb_torch.tensor.tnag.core, quimb_torch.tensor.tnag.builders\n"
+        "import quimb_torch.tensor.tnag.compress\n"
+        "import quimb_torch.tensor.tnag.tebd\n"
+        "import quimb_torch.tensor.circuit.pepo\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
     )
@@ -157,6 +163,41 @@ def test_rings_and_2d_layer_never_import_jax_when_used():
         "n = p.make_norm()\n"
         "n.contract_hotrg(max_bond=8), n.contract_ctmrg(max_bond=8)\n"
         "n.contract_boundary(max_bond=4, mode='full-bond')\n"
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
+    )
+    assert res.returncode == 0, res.stderr
+
+
+def test_jacobi_and_arbitrary_geometry_never_import_jax_when_used():
+    """A JacobiDMRG sweep, a SimpleUpdateGen step with its cluster energy
+    under a thread pool, a 2D compression of a direct sum and a
+    CircuitPEPOSimpleUpdate expectation load neither jax nor quimb_tpu."""
+    res = _run(
+        "import sys, torch\n"
+        "from concurrent.futures import ThreadPoolExecutor\n"
+        "torch.set_num_threads(1)\n"
+        "import quimb_torch as qt\n"
+        "from quimb_torch.tensor.tn1d.dmrg_jacobi import JacobiDMRG\n"
+        "H = qt.MPO_ham_heis(8, device='cpu')\n"
+        "d = qt.DMRG2(H, bond_dims=4)\n"
+        "d.sweep('R', max_bond=4, cutoff=1e-10)\n"
+        "JacobiDMRG(d.state, H, max_bond=4).sweep()\n"
+        "e = qt.edges_2d_kagome(1, 2)\n"
+        "psi = qt.TN_from_edges_rand(e, 2, phys_dim=2, seed=1, "
+        "dtype='float64', device='cpu')\n"
+        "su = qt.SimpleUpdateGen(psi, qt.ham_gen_heis(e), D=2, "
+        "compute_energy_final=False)\n"
+        "su.evolve(1, tau=0.1)\n"
+        "with ThreadPoolExecutor(2) as ex:\n"
+        "    su.get_state().compute_local_expectation(\n"
+        "        qt.ham_gen_heis(e).terms, executor=ex)\n"
+        "p = qt.PEPS_rand(2, 2, 2, seed=1, device='cpu', "
+        "dtype=torch.float64)\n"
+        "qt.tensor_network_2d_compress(p.add_PEPS(p), max_bond=2)\n"
+        "c = qt.CircuitPEPOSimpleUpdate(N=4, max_bond=4, device='cpu')\n"
+        "c.apply_gates([('H', 0), ('CNOT', 0, 1), ('CZ', 1, 2)])\n"
+        "c.local_expectation([[1.0, 0.0], [0.0, -1.0]], 1)\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
     )

@@ -485,6 +485,12 @@ def _full_update(t):
     return m.FullUpdate(t, m.ham_2d_heis(2, 2))
 
 
+def _compress_2d(t, method="local-early"):
+    """``tensor_network_2d_compress`` of ``t`` to bond 1 in its package."""
+    m = jtn if isinstance(t, jtn.PEPS) else ttn
+    return m.tensor_network_2d_compress(t, max_bond=1, method=method)
+
+
 @pytest.mark.parametrize("call,item", [
     (lambda t: t.contract_hotrg(), "13(b)"),
     (lambda t: t.contract_ctmrg(), "13(b)"),
@@ -492,19 +498,14 @@ def _full_update(t):
     (lambda t: t.make_norm().contract_boundary(max_bond=4,
                                                mode="full-bond"), "13(b)"),
     (lambda t: t.add_PEPS(t), "16"),
-    (lambda t: ttn.tensor_network_2d_compress(t, max_bond=2), "16"),
+    (lambda t: _compress_2d(t), "16"),
     (lambda t: _full_update(t), "13(b)"),
 ])
 def test_left_out_parts_name_their_item(call, item):
-    """The parts of ROADMAP item 16 still raise naming it; those of item
-    13(b) are ported and give quimb_tpu's values (its side on host
-    arrays)."""
+    """The parts once left out for ROADMAP items 13(b) and 16 are ported
+    (item 16's direct sum and 2D compression with its part 16(a)) and
+    give quimb_tpu's values (its side on host arrays)."""
     j, t = _pair(2, 2, 2)
-    if item == "16":
-        with pytest.raises(NotImplementedError,
-                           match=re.escape(f"item {item}")):
-            call(t)
-        return
     with jbackend("numpy"):
         want = _value(call(_host(j)))
     np.testing.assert_allclose(_value(call(t)), want, rtol=TOL, atol=1e-12)
@@ -515,6 +516,9 @@ def test_left_out_parts_name_their_item(call, item):
     lambda: ttn.PEPS_computational_state("0000", Lx=2, Ly=2),
     lambda: ttn.PEPO_identity(2, 2),
     lambda: convert.from_tpu_peps(jtn.PEPS_rand(2, 2, 2)),
+    lambda: ttn.TN_from_edges_rand(ttn.edges_2d_square(2, 2), 2, phys_dim=2),
+    lambda: convert.from_tpu_tngen(jtn.TN_from_edges_and_fill_fn(
+        np.ones, jtn.edges_2d_square(2, 2), 2, phys_dim=2)),
 ])
 def test_entry_points_default_to_the_gpu(build):
     """With no ``device``, a 2D builder puts its tensors on the GPU; with no
