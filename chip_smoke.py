@@ -16,8 +16,9 @@ ParallelDMRG from that state; DMRG2 on a float64 state, with every matvec
 in the hand-written FP64 tensor-core (DMMA) kernel, then DMRG1 from that
 state. Then the MPS / MPO object layer on that state, the TEBD quench,
 the exact 20-qubit core, the 53-qubit circuit as a lazy network and as
-an MPS, the 16x16 PEPS, the rings, JacobiDMRG and the arbitrary-geometry
-layer. Its phases, each fatal on failure:
+an MPS, the 16x16 PEPS, the rings, JacobiDMRG, the arbitrary-geometry
+layer, the 3D layer and belief propagation. Its phases, each fatal on
+failure:
 
 1. the device: a CUDA GPU is required; its name and power limit are
    printed;
@@ -105,7 +106,7 @@ layer. Its phases, each fatal on failure:
    host rewrite (``rehearse=True``) and the contraction alone on the card.
    Gated: the circuit on the GPU; every pairwise step of an amplitude on
    CUDA tensors; each amplitude within 1e-9 (complex128) or 1e-3
-   (complex64) relative of REFBASE's; ``sample(20, seed=42)`` in
+   (complex64) relative of REFBASE's; ``sample(10, seed=42)`` in
    complex128 equal to quimb_tpu's strings, its steps on CUDA tensors;
    no sandwich kernel launched. Printed: each expression's flops, width
    and steps, ``amp0`` by ``backend="numpy"``, the busy share over one
@@ -180,8 +181,8 @@ layer. Its phases, each fatal on failure:
    outgrow the card), each timed and held to the "mps" value and to
    quimb_tpu's value within 1e-8; (b)
    FullUpdate (ALS) and SimpleUpdate of the 4x4 Heisenberg model at D=3,
-   chi=32 from ``default_rng(42)`` start arrays, 3 steps at tau=0.3 then
-   3 at 0.1: FullUpdate's energy below SimpleUpdate's and within 1e-8
+   chi=32 from ``default_rng(42)`` start arrays, 2 steps at tau=0.3 then
+   2 at 0.1: FullUpdate's energy below SimpleUpdate's and within 1e-8
    relative of quimb_tpu's; seconds and host syncs a gate, peak
    allocation;
 20. (after phase 17) ``JacobiDMRG`` from the float64 DMRG2 state (L=128,
@@ -194,10 +195,11 @@ layer. Its phases, each fatal on failure:
    half-sweep;
 21. the arbitrary-geometry layer: (a) ``SimpleUpdateGen`` of the kagome
    Heisenberg antiferromagnet (``edges_2d_kagome(6, 6)``, 108 sites, D=4,
-   float64, start arrays from ``default_rng(42)``, ten steps at each of
+   float64, start arrays from ``default_rng(42)``, five steps at each of
    tau = 0.3, 0.1, 0.03) through entry points with no device, its energy
-   per site by ``compute_local_expectation(method="cluster")`` within
-   1e-6 relative of quimb_tpu's from ``scripts/slice12_reference.py``;
+   per site by ``compute_local_expectation(method="cluster")`` on gauges
+   from ``gauge_all_simple(max_iterations=20)`` within 1e-6 relative of
+   quimb_tpu's of the same protocol (``scripts/slice13_reference.py``);
    seconds a step, gates a second, host syncs a gate, busy share, peak
    allocation; (b) phase 16's state scaled to a norm near 1, its direct
    sum with itself (``add_PEPS``, checked block by block), and
@@ -208,8 +210,38 @@ layer. Its phases, each fatal on failure:
    the boundary at chi=32 lies within 1e-8 relative of quimb_tpu's value;
    (c) <Z_q> of all 16 qubits of phase 16's
    circuit by ``CircuitPEPOSimpleUpdate`` at bond 8 (quimb_tpu's smallest
-   exact bond) within 1e-10 of the port's ``Circuit``. No phase from 17
-   on launches a sandwich kernel.
+   exact bond) within 1e-10 of the port's ``Circuit``;
+22. the 3D layer, through entry points with no device, held to quimb_tpu's
+   float64 values from ``scripts/slice13_reference.py``: (a) the 3D
+   classical Ising model at its critical coupling (beta = 0.2216544,
+   ``TN3D_classical_ising_partition_function``): exact at 2x2x2 (against
+   the sum over its 256 configurations) and 3x3x3 (1e-12), then
+   ``contract_ctmrg(max_bond=16)`` at L=8, ``contract_boundary(
+   max_bond=12)`` and ``contract_hotrg(max_bond=8)`` at L=6, each log Z
+   within 1e-8 relative; seconds, peak allocation and ``compress_between``
+   calls a second, and host syncs and the busy share over one plane of the
+   L=8 CTMRG; (b) ``SimpleUpdate3D`` of the 3D Heisenberg model
+   (``ham_3d_heis(4, 4, 4)``) on a 4x4x4 ``PEPS3D`` at D=3 from
+   ``default_rng(42)``, five steps at each of tau = 0.3, 0.1, 0.03: the 144
+   gauge vectors within 1e-6, the BP energy (``D2BP.local_expectation``
+   over the 144 bonds) within 1e-6 relative; seconds a step, gates a
+   second, host syncs a gate, and the boundary norm at max_bond 9 reckoned
+   from its shapes, not run;
+23. belief propagation: (a) ``D2BP`` on phase 16's float64 state: its
+   norm estimate, the BP energy of the 480 bonds and the site norms of
+   ``compress_d2bp(max_bond=2)`` (warm from the converged messages), each
+   within 1e-8 relative, and the site norms of
+   ``gauge_all_belief_propagation()`` of the 6^3 Ising network (on the
+   signed 16x16 state its 1-norm BP never settles); iterations, host
+   reads an iteration and the busy share over one iteration; (b) 1-norm BP
+   on hyper networks: the 3D Ising model in a field h = 0.1
+   (``HTN3D_classical_ising_partition_function``) by ``HV1BP`` at 8^3 and
+   by ``D1BP`` and ``HV1BP`` at 4^3, and random 3-SAT counting
+   (``HTN_random_ksat(3, 1000, alpha=3.0, seed=7)``) by ``HV1BP``, each log
+   Z within 1e-8 relative of quimb_tpu's and the two engines within 1e-6
+   of each other; iterations, seconds and host reads an iteration, shape
+   groups, and the busy share over three HV1BP iterations. No phase from
+   17 on launches a sandwich kernel.
 
 The line before the last is the kernels' JSON summary, one entry per
 kernel with its launches on its paths (DMRG2 and ParallelDMRG for
@@ -219,9 +251,11 @@ the same product) and its bound. The exact core runs no hand-written
 kernel: its matvec is plain PyTorch, measured in phase 11; nor do the
 circuit, the MPS layer and the PEPS: quimb_tpu's have no Pallas kernel,
 and their products run as batched ``matmul``, QR and SVD on the card;
-nor do complex DMRG, the rings, HOTRG, CTMRG, FullUpdate, JacobiDMRG and
-the arbitrary-geometry layer (quimb_tpu runs them on its einsum, QR, SVD,
-Cholesky and eigh). The last line is ``{"ok": true, "device": {...}}``.
+nor do complex DMRG, the rings, HOTRG, CTMRG, FullUpdate, JacobiDMRG,
+the arbitrary-geometry layer, the 3D layer and belief propagation
+(quimb_tpu runs them on its einsum, QR, SVD, Cholesky and eigh; HV1BP's
+batched updates are ``torch.einsum`` over stacked tensors, as quimb_tpu's
+are ``jax.vmap`` of einsums). The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -1432,35 +1466,29 @@ def run_exact_path():
 
 # -- phase 13: the 53-qubit circuit -------------------------------------------
 
+# (CIRC_SAMPLES: the draw of phase 15's CircuitMPS)
 CIRC_N, CIRC_DEPTH, CIRC_SAMPLES, CIRC_SEED = 53, 12, 20, 42
 # relative distance of each amplitude from jcmgray/quimb's (REFBASE): the
 # port's complex128 run on a CPU reaches 3e-12 (float64 round-off over a
 # 466-tensor contraction); complex64 reaches the order of quimb_tpu's TPU
 # run (3e-5)
 CIRC_AMP_TOL = {torch.complex128: 1e-9, torch.complex64: 1e-3}
-# quimb_tpu's strings of ``Circuit.sample(20, seed=42)`` on this circuit,
-# from ``JAX_PLATFORMS=cpu python scripts/circuit53_samples.py`` on a CPU
+# quimb_tpu's strings of ``Circuit.sample(10, seed=42)`` on this circuit,
+# from ``JAX_PLATFORMS=cpu python scripts/circuit53_samples.py 10`` on a CPU
+# (20 samples until the 3D and BP phases were added: a draw of 20 took
+# 33-58 s on the card)
+CIRC_DENSE_SAMPLES = 10
 CIRC_REF_SAMPLES = (
-    "10111110010110010010100001001010010100111100000110101",
-    "01011101001111010110000111000110100100110011110001110",
-    "11000111110110111010010000011110000010000110010010110",
-    "10000010010000011111000101010010111111111100100111100",
-    "01010110111001101110111011100001100110011011011001000",
-    "11000010101100010010100011100000110001100101100101111",
-    "10001110010001111110011001101010010001011100101000101",
-    "11011011000100111001001011111000001111011001000000001",
-    "01111011001010101000000111100010000111000011100100000",
-    "01101010100010010010000000010111000011110010010010110",
-    "01000010100011101000110110000011100111100010101110110",
-    "10100110000000001001011011111010011100001000011110111",
-    "01011110011000000111101011110111110000011101100101111",
-    "10000000110111000101100011010110010011101101011101110",
-    "01100111011110000000000101100011100001010000111100010",
-    "01011100111100111101010011100111010001110000111100101",
-    "00101010100001100101101000010110010001100110111001111",
-    "01001101100011111010011001110001110000110111010000000",
-    "10011001000001100010001000000010111100011011011101110",
-    "01010010100010001111100001011111100100110011100011111",
+    "10111011011111111010101101110111000001011001000110101",
+    "01011110000111010111111011111101100110000010101011110",
+    "11000001101101111101011011111011101110100111100010110",
+    "10000000111000111001010100010101011100101101010111100",
+    "01010101101110100110010011101011111001101011110001000",
+    "11000010010110000100100100111110000001101011111101111",
+    "10001110000010000100101000010110000111101110111000101",
+    "11011100000011010110000110000100111100011000000000001",
+    "01111001010100001000100111111011010101010011010110000",
+    "01101010011000111010010100110010011101010010000010110",
 )
 
 
@@ -1599,9 +1627,10 @@ def run_circuit_path():
 
     with _pair_steps(main_circ) as (steps, finals):
         samples, secs = _timed(lambda: tuple(main_circ.sample(
-            CIRC_SAMPLES, seed=CIRC_SEED)))
+            CIRC_DENSE_SAMPLES, seed=CIRC_SEED)))
     batched, single = _marginal_exprs(main_circ)
-    print(f"circuit sample({CIRC_SAMPLES}, seed={CIRC_SEED}): {secs:.3f} s; "
+    print(f"circuit sample({CIRC_DENSE_SAMPLES}, seed={CIRC_SEED}): "
+          f"{secs:.3f} s; "
           f"{len(batched)} of {-(-CIRC_N // 10)} groups by a batched "
           "expression "
           + ", ".join(f"({e[0].flops:.3e} flops, width {e[0].width:.1f})"
@@ -2589,7 +2618,7 @@ NORM_MPS_TOL = {"mps": 0.0, "full_bond": 3e-4, "ctmrg": 2e-2,
 HOTRG_CHI = 16
 # FullUpdate: the lattice and schedule of scripts/slice11_reference.py, and
 # the bound on the energy's distance from quimb_tpu's float64 value
-FU_L, FU_D, FU_CHI, FU_SCHEDULE = 4, 3, 32, ((3, 0.3), (3, 0.1))
+FU_L, FU_D, FU_CHI, FU_SCHEDULE = 4, 3, 32, ((2, 0.3), (2, 0.1))
 FU_E_TOL = 1e-8
 
 
@@ -2784,9 +2813,14 @@ def run_jacobi(dmrg2):
 # ``python scripts/slice12_reference.py`` on a CPU (see its docstring)
 SLICE12_REF = "scripts/slice12_reference.json"
 # the kagome Heisenberg antiferromagnet: the open 6 x 6 lattice (108
-# sites), D=4, ten imaginary-time steps at each tau; the bound on the
-# energy per site relative to quimb_tpu's from the same start arrays
-KAGOME_L, KAGOME_D, KAGOME_NITS, KAGOME_TAUS = 6, 4, 10, (0.3, 0.1, 0.03)
+# sites), D=4, five imaginary-time steps at each tau (ten until the 3D and
+# BP phases were added); the cluster energy's simple gauging capped at 20
+# iterations (at 100 it ran to its cap without reaching its tolerance,
+# 45-55 s on the card); the bound on the energy per site relative to
+# quimb_tpu's of the same protocol from the same start arrays
+# (scripts/slice13_reference.py, part "kagome")
+KAGOME_L, KAGOME_D, KAGOME_NITS, KAGOME_TAUS = 6, 4, 5, (0.3, 0.1, 0.03)
+KAGOME_GAUGE_ITERATIONS = 20
 KAGOME_E_TOL, KAGOME_THREADS = 1e-6, 4
 # <Z_q> of phase 16's 4x4 circuit by CircuitPEPOSimpleUpdate, against the
 # port's exact Circuit on the card
@@ -2801,10 +2835,12 @@ def run_kagome():
     """Phase 21(a): SimpleUpdateGen of the kagome Heisenberg model through
     the entry points with no device, and its cluster energy."""
     t_phase = time.perf_counter()
-    ref = _slice12_reference("kagome")
-    if (ref["L"], ref["D"], ref["nits"], tuple(ref["taus"])) != (
-            KAGOME_L, KAGOME_D, KAGOME_NITS, KAGOME_TAUS):
-        raise AssertionError(f"{SLICE12_REF} holds another kagome run")
+    ref = _slice13_reference("kagome")
+    if (ref["L"], ref["D"], ref["nits"], tuple(ref["taus"]),
+            ref["gauge_iterations"]) != (KAGOME_L, KAGOME_D, KAGOME_NITS,
+                                         KAGOME_TAUS,
+                                         KAGOME_GAUGE_ITERATIONS):
+        raise AssertionError(f"{SLICE13_REF} holds another kagome run")
     edges = quimb_torch.edges_2d_kagome(KAGOME_L, KAGOME_L)
     rng = np.random.default_rng(42)
     psi0 = quimb_torch.TN_from_edges_and_fill_fn(
@@ -2847,7 +2883,8 @@ def run_kagome():
     for name, us in top:
         print(f"  {us / 1e3:.3f} ms  {name[:100]}", flush=True)
     gauges = {}
-    tn, gsecs = _timed(lambda: psi.gauge_all_simple(gauges=gauges))
+    tn, gsecs = _timed(lambda: psi.gauge_all_simple(
+        max_iterations=KAGOME_GAUGE_ITERATIONS, gauges=gauges))
     with ThreadPoolExecutor(KAGOME_THREADS) as ex:
         e, csecs = _timed(lambda: tn.compute_local_expectation(
             ham.terms, method="cluster", gauges=gauges, executor=ex))
@@ -2855,11 +2892,12 @@ def run_kagome():
     peak = torch.cuda.max_memory_allocated() - base
     e_site = float(np.real(e)) / psi0.nsites
     rel = abs(e_site - ref["energy_per_site"]) / abs(ref["energy_per_site"])
-    print(f"kagome cluster energy: {esecs:.3f} s (gauges {gsecs:.3f} s, "
+    print(f"kagome cluster energy: {esecs:.3f} s (gauges, "
+          f"{KAGOME_GAUGE_ITERATIONS} iterations, {gsecs:.3f} s, "
           f"{nb} clusters on {KAGOME_THREADS} threads {csecs:.3f} s); "
           f"E/site {e_site!r}, "
           f"quimb_tpu's {ref['energy_per_site']!r} (its host run "
-          f"{ref['seconds']:.1f} s), relative {rel:.3e} (bound "
+          f"{ref['energy_seconds']:.1f} s), relative {rel:.3e} (bound "
           f"{KAGOME_E_TOL:.0e}); peak allocation {peak / 1e9:.4f} GB",
           flush=True)
     if not all(t.data.is_cuda for t in su.state):
@@ -3018,6 +3056,430 @@ def run_circuit_pepo():
                              "kernel")
 
 
+# -- phases 22-23: the 3D layer and belief propagation --------------------------
+
+# quimb_tpu's float64 values of phases 21(a) and 22-23, from
+# ``python scripts/slice13_reference.py`` on a CPU (see its docstring)
+SLICE13_REF = "scripts/slice13_reference.json"
+# the 3D classical Ising model at its critical coupling: the exact value
+# at 2 x 2 x 2 (against a sum over the 256 configurations) and 3 x 3 x 3,
+# then (method, L, max_bond) of the truncated contractions; the bounds on
+# log Z relative to quimb_tpu's value of the same protocol
+BETA_C = 0.2216544
+ISING_EXACT_L, ISING_EXACT_TOL = 3, 1e-12
+ISING_RUNS = (("ctmrg", 8, 16), ("boundary", 6, 12), ("hotrg", 6, 8))
+ISING_TOL = 1e-8
+# the lattice of the BP gauge's check (phase 23(a)): its 1-norm BP
+# converges on this positive network
+ISING_GAUGE_L = 6
+# SimpleUpdate3D of the 3D Heisenberg antiferromagnet: a 4 x 4 x 4 PEPS3D
+# at D=3 from default_rng(42), five steps at each tau; the bounds on the
+# gauges and on the BP energy (D2BP over the 144 bonds), and the boundary
+# bond of the (not gated) norm
+P3D_L, P3D_D, P3D_NITS, P3D_TAUS, P3D_SEED = 4, 3, 5, (0.3, 0.1, 0.03), 42
+P3D_GAUGE_TOL, P3D_E_TOL, P3D_NORM_CHI = 1e-6, 1e-6, 9
+# D2BP on phase 16's state: the bound on the BP norm, energy and the site
+# tensors' norms after compress_d2bp (and after the BP gauge of the Ising
+# network); compress_d2bp's bond
+BP16_TOL, BP16_MAX_BOND = 1e-8, 2
+# 1-norm BP on hyper networks: the Ising field and lattice sizes (HV1BP
+# at 8 x 8 x 8, the per-message D1BP and HV1BP at 4 x 4 x 4), random 3-SAT
+# counting; the bounds on log Z relative to quimb_tpu's and between the two
+# engines at one fixed point (each run to its tolerance of 5e-6)
+HYPER_H, HYPER_L, HYPER_L_D1 = 0.1, 8, 4
+KSAT = dict(k=3, num_variables=1000, alpha=3.0, seed=7)
+HYPER_TOL, HYPER_ENGINES_TOL = 1e-8, 1e-6
+
+
+def _slice13_reference(part):
+    return json.loads(Path(SLICE13_REF).read_text())[part]
+
+
+@contextlib.contextmanager
+def _calls(cls, name):
+    """Yields a list whose one entry counts the calls of ``cls.name``
+    made inside."""
+    count = [0]
+    orig = getattr(cls, name)
+
+    def counted(*args, **kwargs):
+        count[0] += 1
+        return orig(*args, **kwargs)
+
+    setattr(cls, name, counted)
+    try:
+        yield count
+    finally:
+        setattr(cls, name, orig)
+
+
+def _peak_from(base):
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def _fresh_peak():
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _ising_log_z(tn, method, chi):
+    """The natural log of the 3D Ising network's value by ``method``."""
+    if method == "exact":
+        z = tn.contract(...)
+    elif method == "ctmrg":
+        z = tn.contract_ctmrg(max_bond=chi)
+    elif method == "boundary":
+        z = tn.contract_boundary(max_bond=chi)
+    else:
+        z = tn.contract_hotrg(max_bond=chi)
+    return math.log(abs(complex(z))) + tn.exponent * math.log(10)
+
+
+def _ising_brute_z(L, beta):
+    """The 3D Ising partition function of an L x L x L lattice, summed
+    over every configuration on the host."""
+    import itertools
+
+    coos = list(itertools.product(range(L), repeat=3))
+    index = {c: k for k, c in enumerate(coos)}
+    spins = 1 - 2 * ((np.arange(2 ** len(coos))[:, None]
+                      >> np.arange(len(coos))) & 1)
+    energy = sum(spins[:, index[a]] * spins[:, index[b]]
+                 for a, b in quimb_torch.gen_3d_bonds(L, L, L))
+    return float(np.exp(beta * energy).sum())
+
+
+def _ising(L):
+    tn = quimb_torch.TN3D_classical_ising_partition_function(
+        L, L, L, beta=BETA_C)
+    if not all(t.data.is_cuda and t.dtype == torch.float64 for t in tn):
+        raise AssertionError("the 3D Ising network is not float64 on the "
+                             "card")
+    return tn
+
+
+def run_ising_3d():
+    """Phase 22(a): the 3D classical Ising model at its critical point,
+    exact and by CTMRG, the boundary sweep and HOTRG, each log Z held to
+    quimb_tpu's."""
+    t_phase = time.perf_counter()
+    ref = _slice13_reference("ising3d")
+    if ref["beta"] != BETA_C:
+        raise AssertionError(f"{SLICE13_REF} holds another Ising coupling")
+    _reset_launches()
+    z2, secs = _timed(lambda: complex(_ising(2).contract(...)).real)
+    brute = _ising_brute_z(2, BETA_C)
+    rel2 = abs(z2 - brute) / brute
+    print(f"3D Ising 2x2x2 exact on the card: Z {z2!r} ({secs:.3f} s), the "
+          f"sum over 256 configurations {brute!r}, relative {rel2:.3e} "
+          f"(bound {ISING_EXACT_TOL:.0e})", flush=True)
+    if not rel2 <= ISING_EXACT_TOL:
+        raise AssertionError("the 2x2x2 Ising value misses the sum")
+    runs = (("exact", ISING_EXACT_L, None), *ISING_RUNS)
+    for method, L, chi in runs:
+        want = ref[f"{method} {L} {chi}"]
+        tn = _ising(L)
+        base = _fresh_peak()
+        with _calls(quimb_torch.TensorNetwork,
+                    "_compress_between_tids") as calls:
+            logz, secs = _timed(lambda: _ising_log_z(tn, method, chi))
+        if method == "exact":
+            # Z itself, relative: the distance of the logs
+            rel, what = abs(math.expm1(logz - want["log_z"])), "Z"
+        else:
+            rel, what = abs(logz - want["log_z"]) / abs(want["log_z"]), "log Z"
+        bound = ISING_EXACT_TOL if method == "exact" else ISING_TOL
+        print(f"3D Ising {method} L={L} max_bond={chi}: {secs:.3f} s "
+              f"(quimb_tpu's host run {want['seconds']:.1f} s), peak "
+              f"allocation {_peak_from(base):.4f} GB, {calls[0]} "
+              f"compress_between calls ({calls[0] / secs:.1f} a second); "
+              f"log Z / site {logz / L ** 3!r}, quimb_tpu's "
+              f"{want['log_z_per_site']!r}, {what} relative {rel:.3e} "
+              f"(bound {bound:.0e})", flush=True)
+        if not rel <= bound:
+            raise AssertionError(f"the 3D Ising {method} value misses "
+                                 f"quimb_tpu's")
+    # a short window: one plane of the L=8 CTMRG absorbed and compressed
+    tn = _ising(ISING_RUNS[0][1])
+    window = functools.partial(tn.contract_boundary_from, "xmin",
+                               max_bond=ISING_RUNS[0][2], xrange=(0, 1))
+    syncs = _syncs(window)
+    share, top, wall_us, count = _busy_share(window)
+    print(f"one plane absorbed at L={ISING_RUNS[0][1]} under torch.profiler: "
+          f"{wall_us / 1e6:.3f} s wall, {count} device activities, {syncs} "
+          f"host syncs, busy share "
+          + ("not measured" if share is None else f"{share:.4f}"),
+          flush=True)
+    for name, us in top:
+        print(f"  {us / 1e3:.3f} ms  {name[:100]}", flush=True)
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError("the 3D contractions launched a sandwich kernel")
+    print(f"3D Ising phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _bond_sites(psi, ix):
+    """The two site coordinates of a PEPS3D bond, as the key of
+    scripts/slice13_reference.py's gauges."""
+    coos = []
+    for tid in psi.ind_map[ix]:
+        tag = next(t for t in psi.tensor_map[tid].tags if t.startswith("I"))
+        coos.append(tuple(int(v) for v in tag[1:].split(",")))
+    return "|".join(",".join(map(str, c)) for c in sorted(coos))
+
+
+def _heis_h2():
+    return quimb_torch.ham_3d_heis(1, 1, 2).get_term(((0, 0, 0), (0, 0, 1)))
+
+
+def run_peps3d():
+    """Phase 22(b): SimpleUpdate3D of the 3D Heisenberg model on a 4 x 4 x
+    4 PEPS3D, its gauges and BP energy held to quimb_tpu's."""
+    from quimb_torch.tensor.belief_propagation import D2BP
+
+    t_phase = time.perf_counter()
+    ref = _slice13_reference("peps3d")
+    if (ref["L"], ref["D"], ref["nits"], tuple(ref["taus"]),
+            ref["seed"]) != (P3D_L, P3D_D, P3D_NITS, P3D_TAUS, P3D_SEED):
+        raise AssertionError(f"{SLICE13_REF} holds another PEPS3D run")
+    _reset_launches()
+    L = P3D_L
+    rng = np.random.default_rng(P3D_SEED)
+    psi0 = quimb_torch.PEPS3D.from_fill_fn(
+        lambda s: rng.standard_normal(s), L, L, L, P3D_D)
+    if not all(t.data.is_cuda and t.dtype == torch.float64 for t in psi0):
+        raise AssertionError("the PEPS3D is not float64 on the card")
+    ham = quimb_torch.ham_3d_heis(L, L, L)
+    nb = len(ham.terms)
+    su = quimb_torch.SimpleUpdate3D(psi0, ham, D=P3D_D)
+    base = _fresh_peak()
+    with _counted_syncs() as syncs:
+        _, secs = _timed(lambda: su.evolve(1, P3D_TAUS[0]))
+    for k, tau in enumerate(P3D_TAUS):
+        _, t = _timed(lambda: su.evolve(P3D_NITS - (k == 0), tau))
+        secs += t
+    steps = P3D_NITS * len(P3D_TAUS)
+    print(f"SimpleUpdate3D {L}x{L}x{L} ({nb} bonds), D={P3D_D}: {steps} "
+          f"steps in {secs:.3f} s (quimb_tpu's host run "
+          f"{ref['su_seconds']:.1f} s), {secs / steps:.4f} s a step, "
+          f"{steps * nb / secs:.1f} gates a second, {len(syncs) / nb:.2f} "
+          f"host syncs a gate, peak allocation {_peak_from(base):.4f} GB; "
+          f"state {su.state.dtype}", flush=True)
+    if not all(t.data.is_cuda for t in su.state):
+        raise AssertionError("SimpleUpdate3D left the card")
+    got = {_bond_sites(su.state, ix): s for ix, s in su.gauges.items()}
+    if set(got) != set(ref["gauges"]):
+        raise AssertionError("SimpleUpdate3D's gauges sit on other bonds")
+    gerr = max(float(np.abs(to_host(got[k]) - np.asarray(v)).max())
+               for k, v in ref["gauges"].items())
+    print(f"  {len(got)} gauge vectors, largest distance from quimb_tpu's "
+          f"{gerr:.3e} (bound {P3D_GAUGE_TOL:.0e})", flush=True)
+    if not gerr <= P3D_GAUGE_TOL:
+        raise AssertionError("the 3D gauges miss quimb_tpu's")
+    # the busy share over one more sweep of a copy (144 gates)
+    more = quimb_torch.SimpleUpdate3D(su.state, ham, D=P3D_D)
+    more.gauges = dict(su.gauges)
+    share, top, wall_us, count = _busy_share(
+        lambda: more.evolve(1, P3D_TAUS[-1]))
+    print(f"  one sweep of a copy under torch.profiler: {wall_us / 1e6:.3f} s "
+          f"wall, {count} device activities, busy share "
+          + ("not measured" if share is None else f"{share:.4f}"),
+          flush=True)
+    for name, us in top[:3]:
+        print(f"    {us / 1e3:.3f} ms  {name[:100]}", flush=True)
+    psi = su.get_state()
+    h2 = _heis_h2()
+    bp = D2BP(psi)
+    with _counted_syncs() as syncs:
+        _, bsecs = _timed(bp.run)
+    e, esecs = _timed(lambda: sum(bp.local_expectation(h2, where)
+                                  for where in ham.terms).real)
+    rel = abs(e - ref["bp_energy"]) / abs(ref["bp_energy"])
+    print(f"  D2BP: {bp.n_iter} iterations in {bsecs:.3f} s (quimb_tpu's "
+          f"{ref['bp_iterations']}), {len(syncs) / max(bp.n_iter, 1):.1f} "
+          f"host reads an iteration; BP energy of {nb} bonds {e!r} "
+          f"({esecs:.3f} s), quimb_tpu's {ref['bp_energy']!r}, relative "
+          f"{rel:.3e} (bound {P3D_E_TOL:.0e})", flush=True)
+    if not rel <= P3D_E_TOL:
+        raise AssertionError("the 3D BP energy misses quimb_tpu's")
+    mant, expo = bp.contract(strip_exponent=True)
+    bp_log10 = expo + math.log10(abs(complex(mant)))
+    # the boundary norm is reckoned, not run: its first plane merge joins
+    # the ket and bra of two planes, D**4 per in-plane bond, before any
+    # compression
+    entries = (P3D_D ** 4) ** 4 * P3D_D ** 2
+    print(f"  log10 <psi|psi> by BP {bp_log10:.6f}; norm2(max_bond="
+          f"{P3D_NORM_CHI}) by the boundary not run: its first plane merge "
+          f"builds an interior site tensor of {entries} entries "
+          f"({entries * 16 / 1e9:.1f} GB in complex128) before it "
+          f"compresses", flush=True)
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError("SimpleUpdate3D launched a sandwich kernel")
+    print(f"PEPS3D phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _site_norms(tn, tags):
+    return {t: float(torch.linalg.norm(tn[t].data)) for t in tags}
+
+
+def _norms_err(got, want):
+    return max(abs(got[t] - w) / abs(w) for t, w in want.items())
+
+
+def run_peps16_bp(psi16):
+    """Phase 23(a): 2-norm BP on phase 16's float64 16x16 state: the BP
+    norm and energy and compress_d2bp, each held to quimb_tpu's; the BP
+    gauge of the 3D Ising network, held to quimb_tpu's."""
+    from quimb_torch.tensor.belief_propagation import D2BP, compress_d2bp
+
+    t_phase = time.perf_counter()
+    ref = _slice13_reference("peps16_bp")
+    if (ref["L"], ref["D"]) != (PEPS_L, PEPS_D):
+        raise AssertionError(f"{SLICE13_REF} holds another PEPS")
+    _reset_launches()
+    psi = psi16
+    ham = quimb_torch.ham_2d_heis(PEPS_L, PEPS_L)
+    h2 = ham.get_term(next(iter(ham.terms)))
+    base = _fresh_peak()
+    bp = D2BP(psi)
+    with _counted_syncs() as syncs:
+        _, secs = _timed(bp.run)
+    mant, expo = bp.contract(strip_exponent=True)
+    log10 = expo + math.log10(abs(complex(mant)))
+    rel = abs(log10 - ref["log10_norm"]) / abs(ref["log10_norm"])
+    print(f"D2BP 16x16 ({len(bp.messages)} messages): {bp.n_iter} "
+          f"iterations in {secs:.3f} s (quimb_tpu's {ref['bp_iterations']} "
+          f"in {ref['bp_seconds']:.1f} s on the host), "
+          f"{secs / bp.n_iter:.3f} s and {len(syncs) / bp.n_iter:.1f} host "
+          f"reads an iteration; log10 <psi|psi> {log10!r}, quimb_tpu's "
+          f"{ref['log10_norm']!r}, relative {rel:.3e} (bound "
+          f"{BP16_TOL:.0e})", flush=True)
+    if not rel <= BP16_TOL:
+        raise AssertionError("the BP norm misses quimb_tpu's")
+    e, esecs = _timed(lambda: sum(bp.local_expectation(h2, where)
+                                  for where in ham.terms).real)
+    rel = abs(e - ref["bp_energy"]) / abs(ref["bp_energy"])
+    e32 = PEPS_QTPU_E_SITE * PEPS_L ** 2
+    print(f"  BP energy of {len(ham.terms)} bonds {e!r} ({esecs:.3f} s), "
+          f"quimb_tpu's {ref['bp_energy']!r}, relative {rel:.3e} (bound "
+          f"{BP16_TOL:.0e}); not gated: {e - e32:+.4e} from the chi="
+          f"{PEPS_CHI} boundary energy {e32!r}", flush=True)
+    if not rel <= BP16_TOL:
+        raise AssertionError("the BP energy misses quimb_tpu's")
+    c, csecs = _timed(lambda: compress_d2bp(psi, max_bond=BP16_MAX_BOND,
+                                            messages=dict(bp.messages)))
+    err = _norms_err(_site_norms(c, ref["compress_norms"]),
+                     ref["compress_norms"])
+    print(f"  compress_d2bp(max_bond={BP16_MAX_BOND}), warm: {csecs:.3f} s, "
+          f"bonds {c.max_bond()}; site norms' largest relative distance "
+          f"from quimb_tpu's {err:.3e} (bound {BP16_TOL:.0e})", flush=True)
+    if not (err <= BP16_TOL and c.max_bond() == ref["compress_max_bond"]
+            and all(t.data.is_cuda for t in c)):
+        raise AssertionError("compress_d2bp misses quimb_tpu's")
+    # the BP gauge (1-norm BP, D1BP): on this signed state its messages
+    # never settle (they still change by ~2 after its 100 iterations, in
+    # quimb_tpu as in the port; scripts/slice13_reference.py), so it is
+    # held on the positive 3D Ising network of phase 22(a), where they do
+    d1 = ref["d1bp"]
+    print(f"  not run: psi.gauge_all_belief_propagation(); quimb_tpu's "
+          f"D1BP on psi: {d1['iterations']} iterations, converged "
+          f"{d1['converged']}, last changes {d1['last_mdiffs']}", flush=True)
+    gref = _slice13_reference("ising3d")[f"bp_gauge {ISING_GAUGE_L}"]
+    tn = _ising(ISING_GAUGE_L)
+    with _counted_syncs() as syncs:
+        g, gsecs = _timed(tn.gauge_all_belief_propagation)
+    err = _norms_err(_site_norms(g, gref["norms"]), gref["norms"])
+    print(f"  gauge_all_belief_propagation of the {ISING_GAUGE_L}^3 Ising "
+          f"network: {gsecs:.3f} s (quimb_tpu's host run "
+          f"{gref['seconds']:.1f} s), {len(syncs)} host reads; site norms' "
+          f"largest relative distance from quimb_tpu's {err:.3e} (bound "
+          f"{BP16_TOL:.0e}); peak allocation {_peak_from(base):.4f} GB",
+          flush=True)
+    if not (err <= BP16_TOL and all(t.data.is_cuda for t in g)):
+        raise AssertionError("the BP gauge misses quimb_tpu's")
+    warm = D2BP(psi, messages=dict(bp.messages))
+    share, top, wall_us, count = _busy_share(warm.iterate)
+    print(f"one D2BP iteration under torch.profiler: {wall_us / 1e6:.3f} s "
+          f"wall, {count} device activities, busy share "
+          + ("not measured" if share is None else f"{share:.4f}"),
+          flush=True)
+    for name, us in top:
+        print(f"  {us / 1e3:.3f} ms  {name[:100]}", flush=True)
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError("D2BP launched a sandwich kernel")
+    print(f"16x16 BP phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def run_hyper_bp():
+    """Phase 23(b): 1-norm BP on hyper networks, the batched HV1BP and
+    the per-message D1BP, each log Z held to quimb_tpu's."""
+    from quimb_torch.tensor.belief_propagation import D1BP, HV1BP
+
+    t_phase = time.perf_counter()
+    ref = _slice13_reference("hyper")
+    if (ref["beta"], ref["h"], ref["ksat"]) != (BETA_C, HYPER_H, KSAT):
+        raise AssertionError(f"{SLICE13_REF} holds other hyper networks")
+    _reset_launches()
+
+    def ising(L):
+        return quimb_torch.HTN3D_classical_ising_partition_function(
+            L, L, L, beta=BETA_C, h=HYPER_H)
+
+    runs = (
+        (f"hv1bp ising {HYPER_L}", HV1BP, lambda: ising(HYPER_L)),
+        (f"hd1bp ising {HYPER_L_D1}", D1BP, lambda: ising(HYPER_L_D1)),
+        (f"hv1bp ising {HYPER_L_D1}", HV1BP, lambda: ising(HYPER_L_D1)),
+        ("hv1bp ksat", HV1BP, lambda: quimb_torch.HTN_random_ksat(**KSAT)),
+    )
+    got = {}
+    for name, engine, build in runs:
+        want = ref[name]
+        tn = build()
+        if not all(t.data.is_cuda and t.dtype == torch.float64 for t in tn):
+            raise AssertionError(f"{name}: the network is not on the card")
+        base = _fresh_peak()
+        bp = engine(tn)
+        with _counted_syncs() as syncs:
+            _, secs = _timed(bp.run)
+        mant, expo = bp.contract(strip_exponent=True)
+        got[name] = expo + math.log10(abs(complex(mant)))
+        rel = abs(got[name] - want["log10"]) / abs(want["log10"])
+        groups = (f", {len(bp.groups)} shape groups"
+                  if engine is HV1BP else "")
+        print(f"{name} ({tn.num_tensors} tensors, {tn.num_indices} "
+              f"indices{groups}): {bp.n_iter} iterations in {secs:.3f} s "
+              f"(quimb_tpu's {want['iterations']} in {want['seconds']:.1f} s "
+              f"on the host), {secs / bp.n_iter * 1e3:.2f} ms and "
+              f"{len(syncs) / bp.n_iter:.1f} host reads an iteration, peak "
+              f"allocation {_peak_from(base):.4f} GB; log10 Z {got[name]!r}, "
+              f"quimb_tpu's {want['log10']!r}, relative {rel:.3e} (bound "
+              f"{HYPER_TOL:.0e})", flush=True)
+        if not rel <= HYPER_TOL:
+            raise AssertionError(f"{name} misses quimb_tpu's")
+        if engine is HV1BP:
+            warm = HV1BP(tn, messages=bp.get_messages())
+            share, top, wall_us, count = _busy_share(
+                lambda: [warm.iterate() for _ in range(3)])
+            print(f"  three iterations under torch.profiler: "
+                  f"{wall_us / 1e6:.4f} s wall, {count} device activities, "
+                  f"busy share "
+                  + ("not measured" if share is None else f"{share:.4f}"),
+                  flush=True)
+            for kname, us in top[:3]:
+                print(f"    {us / 1e3:.3f} ms  {kname[:100]}", flush=True)
+    a, b = got[f"hd1bp ising {HYPER_L_D1}"], got[f"hv1bp ising {HYPER_L_D1}"]
+    rel = abs(a - b) / abs(b)
+    print(f"D1BP against HV1BP at {HYPER_L_D1}^3: relative {rel:.3e} (bound "
+          f"{HYPER_ENGINES_TOL:.0e})", flush=True)
+    if not rel <= HYPER_ENGINES_TOL:
+        raise AssertionError("the two BP engines reach different points")
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError("hyper BP launched a sandwich kernel")
+    print(f"hyper BP phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main():
     t_start = time.perf_counter()
     check_device()
@@ -3054,11 +3516,16 @@ def main():
     t_2d = time.perf_counter()
     run_peps_norms(psi16)
     run_2d_compress(psi16)
-    del psi16
     run_full_update()
     print(f"2D layer phase: {time.perf_counter() - t_2d:.1f} s", flush=True)
     run_kagome()
     run_circuit_pepo()
+    torch.cuda.empty_cache()
+    run_ising_3d()
+    run_peps3d()
+    run_peps16_bp(psi16)
+    del psi16
+    run_hyper_bp()
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{

@@ -20,7 +20,13 @@ Hamiltonians, ``SimpleUpdate`` (fused colour-class sweeps on the device),
 arbitrary-geometry layer: the lattice edge generators (``edges_*``),
 ``TensorNetworkGen`` / ``GenVector`` / ``GenOperator`` with their builders
 (``TN_from_edges_*``), compressions, ``TEBDGen`` and ``SimpleUpdateGen``,
-and ``CircuitPEPOSimpleUpdate``. DMRG sweeps a ring of
+and ``CircuitPEPOSimpleUpdate``. And the 3D layer (``PEPS3D``,
+``TensorNetwork3D`` with boundary, CTMRG and HOTRG contraction,
+``SimpleUpdate3D``), the network builders (``TN2D_*``, ``TN3D_*``, the
+classical Ising partition functions, k-SAT counting networks), the circuit
+ansatz generators (``circ_*``) and belief propagation
+(``tensor.belief_propagation``: D1BP, D2BP, the batched HV1BP, MPS1BP, the
+lazy and generalized variants). DMRG sweeps a ring of
 40 sites or more with its segmented engine, and TEBD evolves rings too;
 ``heisenberg_energy`` is the Heisenberg chain's scaling formula.
 Every builder and entry point

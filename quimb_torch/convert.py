@@ -8,7 +8,9 @@ Hamiltonian of the exact layer crosses as its scipy matrix; a tensor or
 a tensor network crosses with its arrays read as numpy arrays and its
 ``inds`` and ``tags`` kept; a circuit crosses as its list of gates; a PEPS or PEPO
 crosses like an MPS, and a SimpleUpdate's gauge dict as its vectors; an
-arbitrary-geometry network crosses with its class and its site ids.
+arbitrary-geometry network crosses with its class and its site ids, and a 3D
+network (``TensorNetwork3D``, ``PEPS3D``) with its class, its lattice size
+and its tag and index ids.
 Tensors land on ``device``, the GPU unless the caller names another.
 """
 
@@ -115,6 +117,25 @@ def from_tpu_tngen(tn, device=None, dtype=None):
         Tensor(to_device(np.asarray(t.data), device=device, dtype=dtype),
                inds=tuple(t.inds), tags=tuple(t.tags))
         for t in tn.tensor_map.values()], virtual=True)
+    return new.view_as_(cls, **ids)
+
+
+def from_tpu_tn3d(tn, device=None, dtype=None):
+    """A quimb_tpu ``TensorNetwork3D``, ``TensorNetwork3DVector`` or
+    ``PEPS3D`` -> the port's class of the same name, with the same tensors
+    (in the same order), index names, tags, ``Lx``, ``Ly``, ``Lz`` and tag
+    and index ids, its arrays read as numpy arrays."""
+    from .tensor.core import Tensor, TensorNetwork
+    from .tensor.tn3d import core as t3
+
+    cls = getattr(t3, type(tn).__name__)
+    ids = {ep.lstrip("_"): getattr(tn, ep) for ep in cls._EXTRA_PROPS}
+    device = resolve_device(device)
+    new = TensorNetwork([
+        Tensor(to_device(np.asarray(t.data), device=device, dtype=dtype),
+               inds=tuple(t.inds), tags=tuple(t.tags))
+        for t in tn.tensor_map.values()], virtual=True)
+    new.exponent = getattr(tn, "exponent", 0.0)
     return new.view_as_(cls, **ids)
 
 

@@ -1,6 +1,6 @@
 """Random arrays with controllable seeding: the parts of quimb_tpu's
-``gen/rand.py`` that the tensor-network layer uses (``randn``,
-``seed_rand``).
+``gen/rand.py`` that the tensor-network layer and the network builders use
+(``randn``, ``seed_rand``, ``get_rand_fill_fn``, ``rand_phase``).
 
 quimb_tpu draws from JAX's PRNG, which torch cannot reproduce, so the
 values differ; the shapes, dtypes, moments and the determinism under one
@@ -45,6 +45,34 @@ def _generator(device, seed=None):
     return gen
 
 
+def _draw(shape, rdt, dist, gen, device):
+    """One real draw of ``shape`` from ``gen`` in the distribution ``dist``."""
+    if dist == "normal":
+        return torch.randn(shape, generator=gen, dtype=rdt, device=device)
+    if dist == "uniform":
+        return torch.rand(shape, generator=gen, dtype=rdt,
+                          device=device) - 0.5
+    if dist == "rademacher":
+        return 2 * torch.randint(0, 2, shape, generator=gen,
+                                 device=device).to(rdt) - 1
+    if dist == "exp":
+        u = torch.rand(shape, generator=gen, dtype=rdt, device=device)
+        return -torch.log1p(-u)
+    raise ValueError(f"unknown distribution {dist}")
+
+
+def _randn_from(gen, shape, dtype, scale, loc, dist, device):
+    rdt = torch.empty(0, dtype=dtype).real.dtype
+    out = _draw(shape, rdt, dist, gen, device)
+    if dtype.is_complex:
+        out = torch.complex(out, _draw(shape, rdt, dist, gen, device))
+    if scale != 1.0:
+        out = out * scale
+    if loc != 0.0:
+        out = out + loc
+    return out.to(dtype)
+
+
 def randn(shape=(), dtype=None, scale=1.0, loc=0.0, seed=None,
           dist="normal", device=None):
     """Random tensor of ``shape`` on ``device`` (the GPU unless given):
@@ -52,30 +80,46 @@ def randn(shape=(), dtype=None, scale=1.0, loc=0.0, seed=None,
     imaginary parts, each of unit variance, as in quimb_tpu."""
     if isinstance(shape, int):
         shape = (shape,)
-    shape = tuple(shape)
     dtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
     device = resolve_device(device)
-    rdt = torch.empty(0, dtype=dtype).real.dtype
+    return _randn_from(_generator(device, seed), tuple(shape), dtype, scale,
+                       loc, dist, device)
+
+
+def get_rand_fill_fn(dist="normal", loc=0.0, scale=1.0, seed=None,
+                     dtype=None, device=None):
+    """A stateful ``fill_fn(shape) -> tensor`` on ``device`` (the GPU
+    unless given), drawing from one generator seeded ``seed`` (reference
+    ``get_rand_fill_fn`` gen/rand.py:322): successive calls draw fresh
+    values, and two closures of one seed draw the same sequence."""
+    dtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
+    device = resolve_device(device)
     gen = _generator(device, seed)
+    if seed is None:
+        # a private stream, seeded from the shared one, so the closure's
+        # draws do not depend on other draws made meanwhile
+        sub = torch.Generator(device=device)
+        sub.manual_seed(int(torch.randint(
+            0, 2**62, (), generator=gen, device=device)))
+        gen = sub
 
-    def draw():
-        if dist == "normal":
-            return torch.randn(shape, generator=gen, dtype=rdt,
-                               device=device)
-        if dist == "uniform":
-            return torch.rand(shape, generator=gen, dtype=rdt,
-                              device=device) - 0.5
-        if dist == "rademacher":
-            return 2 * torch.randint(0, 2, shape, generator=gen,
-                                     device=device).to(rdt) - 1
-        if dist == "exp":
-            u = torch.rand(shape, generator=gen, dtype=rdt, device=device)
-            return -torch.log1p(-u)
-        raise ValueError(f"unknown distribution {dist}")
+    def fill_fn(shape=()):
+        return _randn_from(gen, tuple(shape), dtype, scale, loc, dist,
+                           device)
 
-    out = torch.complex(draw(), draw()) if dtype.is_complex else draw()
-    if scale != 1.0:
-        out = out * scale
-    if loc != 0.0:
-        out = out + loc
-    return out.to(dtype)
+    return fill_fn
+
+
+def rand_phase(shape, dtype=None, seed=None, device=None):
+    """Random pure phases ``e^{i theta}``, theta uniform in [0, 2 pi), in a
+    complex ``dtype`` on ``device`` (the GPU unless given)."""
+    dtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
+    if not dtype.is_complex:
+        raise ValueError("rand_phase needs a complex dtype")
+    if isinstance(shape, int):
+        shape = (shape,)
+    device = resolve_device(device)
+    rdt = torch.empty(0, dtype=dtype).real.dtype
+    theta = torch.rand(tuple(shape), generator=_generator(device, seed),
+                       dtype=rdt, device=device) * (2 * np.pi)
+    return torch.polar(torch.ones_like(theta), theta).to(dtype)

@@ -3230,9 +3230,29 @@ def _tn_gauge_all_bp(self, max_iterations=100, tol=5e-6,
                      inplace=False, **kwargs):
     """Gauge every bond with converged 1-norm BP message products
     (reference ``gauge_all_belief_propagation``
-    tensor_core.py:7776)."""
-    raise _deferred(16, "TensorNetwork.gauge_all_belief_propagation "
-                    "(belief_propagation)")
+    tensor_core.py:7776): on each bond of two tensors, the diagonal gauge
+    ``g = sqrt((|m2| + smudge) / (|m1| + smudge))`` and its inverse, which
+    keep the network's value."""
+    from .belief_propagation import D1BP
+
+    tn = self if inplace else self.copy()
+    bp = D1BP(tn, max_iterations=max_iterations, tol=tol, **kwargs)
+    bp.run()
+    for ix, tids in tuple(tn.ind_map.items()):
+        if len(tids) != 2:
+            continue
+        tid1, tid2 = tuple(tids)
+        m1 = bp.messages.get((ix, tid1))
+        m2 = bp.messages.get((ix, tid2))
+        if m1 is None or m2 is None:
+            continue
+        # symmetric (value-preserving) gauge: rotate the bond basis so
+        # the two BP messages become equal
+        smudge = 1e-12
+        g = torch.sqrt((torch.abs(m2) + smudge) / (torch.abs(m1) + smudge))
+        tn.tensor_map[tid1].multiply_index_diagonal_(ix, g)
+        tn.tensor_map[tid2].multiply_index_diagonal_(ix, 1 / g)
+    return tn
 
 
 def _tn_gauge_all(self, method="canonize", **kwargs):

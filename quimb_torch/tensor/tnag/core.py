@@ -17,13 +17,15 @@ neighbourhood, its outer bonds capped with the simple-update gauges).
 ``concurrent.futures`` executor; the contraction expressions' cache is
 shared under a lock (:mod:`quimb_torch.ops.contraction`). The loop
 expansions (``'gloop-expand'``, ``'sloop-expand'`` and
-``norm_gloop_expand``) need belief propagation's ``RegionGraph``, not
-ported yet: they raise naming ROADMAP item 16(c).
+``norm_gloop_expand``) weight gauge-capped cluster estimates over
+loop-extended regions by the counting numbers of belief propagation's
+``RegionGraph``.
 """
 
 import collections
 import functools
 import itertools
+import math
 
 import numpy as np
 import torch
@@ -33,7 +35,6 @@ from ...utils import oset
 from ..core import (
     Tensor,
     TensorNetwork,
-    _deferred,
     bonds,
     rand_uuid,
 )
@@ -502,25 +503,129 @@ class TensorNetworkGenVector(TensorNetworkGen):
             ev = ev / norm
         return ev
 
+    def _tid_to_site(self):
+        m = {}
+        for s in self._sites:
+            for tid in self._get_tids_from_tags(self.site_tag(s), "any"):
+                m[tid] = s
+        return m
+
+    def _gloop_site_regions(self, loops="gloops", max_size=None):
+        """Site-sets of the generalized (or chordless) loops of the
+        network."""
+        from ..networking import gen_gloops, gen_sloops
+
+        gen = gen_gloops if loops == "gloops" else gen_sloops
+        t2s = self._tid_to_site()
+        out = set()
+        for gl in gen(self, max_size=max_size) if loops == "gloops" \
+                else gen(self, max_loop_length=max_size):
+            sites = frozenset(
+                t2s[tid] for tid in gl if tid in t2s
+            )
+            if len(sites) > 1:
+                out.add(sites)
+        return out
+
     def local_expectation_gloop_expand(
         self, G, where, max_size=None, gauges=None, loops="gloops",
         **kwargs,
     ):
-        """Loop-corrected local expectation (reference gloop / sloop
-        expansions tnag/core.py:2682 / :2875): gauge-capped cluster
-        estimates over loop-extended regions weighted by the counting
-        numbers of a ``RegionGraph``, which belief propagation (not ported
-        yet) provides."""
-        raise _deferred("16(c)", "local_expectation_gloop_expand "
-                        "(belief_propagation/extras.py RegionGraph)")
+        """Loop-corrected local expectation (reference gloop/sloop
+        expansions tnag/core.py:2682/:2875): combine gauge-capped
+        cluster estimates over the base region and every loop-extended
+        region, weighted by cluster-variation counting numbers."""
+        from ..belief_propagation.extras import RegionGraph
+
+        if not isinstance(where, (tuple, list)):
+            where = (where,)
+        if gauges is None:
+            gauges = {}
+            tn = self.gauge_all_simple(gauges=gauges)
+        else:
+            tn = self
+        base = frozenset(where)
+        regions = {base}
+        for sites in tn._gloop_site_regions(loops, max_size):
+            if sites & base:
+                regions.add(base | sites)
+        rg = RegionGraph(regions, autocomplete=True)
+        ev = 0.0
+        for region in rg.regions:
+            c = rg.get_count(region)
+            if c == 0:
+                continue
+            ev = ev + c * tn.local_expectation_cluster(
+                G, where, region=region, gauges=gauges, **kwargs
+            )
+        return ev
 
     def norm_gloop_expand(self, max_size=None, gauges=None,
                           loops="gloops", smudge=1e-12, optimize="auto"):
         """Loop-corrected estimate of ``log <psi|psi>`` (reference
-        ``norm_gloop_expand`` tnag/core.py:3025), on a ``RegionGraph``
-        of belief propagation (not ported yet)."""
-        raise _deferred("16(c)", "norm_gloop_expand "
-                        "(belief_propagation/extras.py RegionGraph)")
+        ``norm_gloop_expand`` tnag/core.py:3025): ``sum_R c_R log Z_R``
+        over single sites and loop regions with gauge-capped
+        boundaries."""
+        from ..belief_propagation.extras import RegionGraph
+
+        log_scale = 0.0
+        if gauges is None:
+            info = {}
+            gauges = {}
+            tn = self.gauge_all_simple(info=info, gauges=gauges)
+            log_scale = info["log_scale"]
+        else:
+            tn = self
+        # base regions are the bonded site *pairs* — their single-site
+        # intersections then carry the (negative) counting numbers that
+        # divide out double-counted sites, exactly the Bethe / simple
+        # gauge norm estimate; loop regions add the corrections
+        t2s = tn._tid_to_site()
+        regions = set()
+        for ix, tids in tn.ind_map.items():
+            sites = {t2s[t] for t in tids if t in t2s}
+            if len(sites) == 2:
+                regions.add(frozenset(sites))
+        regions |= {frozenset((s,)) for s in tn._sites}
+        regions |= tn._gloop_site_regions(loops, max_size)
+        rg = RegionGraph(regions, autocomplete=True)
+        logz = 0.0
+        for region in rg.regions:
+            c = rg.get_count(region)
+            if c == 0:
+                continue
+            zr = tn._region_norm2(region, gauges, smudge=smudge,
+                                  optimize=optimize)
+            logz += c * math.log(abs(zr))
+        return 0.5 * logz + log_scale
+
+    def _region_norm2(self, region, gauges, smudge=1e-12,
+                      optimize="auto"):
+        """<psi|psi> restricted to a gauge-capped site region."""
+        tags = tuple(self.site_tag(s) for s in region)
+        ket = self.select(tags, which="any").copy()
+        if gauges:
+            for ix in tuple(ket.ind_map):
+                if ix not in gauges:
+                    continue
+                n_in = len(ket.ind_map[ix])
+                full_n = len(self.ind_map[ix])
+                if n_in == 2:
+                    sq = torch.sqrt(gauges[ix] + smudge)
+                    for tid in tuple(ket.ind_map[ix]):
+                        ket.tensor_map[tid].multiply_index_diagonal_(
+                            ix, sq
+                        )
+                elif n_in == 1 and full_n == 2:
+                    (tid,) = ket.ind_map[ix]
+                    ket.tensor_map[tid].multiply_index_diagonal_(
+                        ix, gauges[ix] + smudge
+                    )
+        bra = ket.H
+        bra.mangle_inner_("*")
+        return complex(
+            (ket & bra).contract(..., optimize=optimize)
+        ).real
 
     def local_expectation(self, G, where, method="cluster", **kwargs):
         if method == "exact":

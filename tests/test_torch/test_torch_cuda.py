@@ -863,3 +863,50 @@ def test_simple_update_gen_step_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(out["cuda"][0][ix].cpu().numpy(),
                                    g.numpy(), rtol=0, atol=1e-10)
     assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-10
+
+
+def test_simple_update_3d_step_on_card_matches_cpu(cuda):
+    """One SimpleUpdate3D step of the 3D Heisenberg model on a 2 x 2 x 2
+    PEPS3D (D=2, float64, the same start arrays) on the card gives the
+    CPU's gauges (1e-10) and launches no sandwich kernel."""
+    rng = np.random.default_rng(5)
+    psi0 = quimb_torch.PEPS3D.from_fill_fn(
+        lambda s: rng.standard_normal(s), 2, 2, 2, 2, device="cpu")
+    before = dict(ck.LAUNCHES)
+    out = {}
+    for dev in ("cpu", cuda):
+        psi = psi0.copy()
+        psi.apply_to_arrays(lambda a: a.to(dev))
+        su = quimb_torch.SimpleUpdate3D(psi, quimb_torch.ham_3d_heis(2, 2, 2),
+                                        D=2)
+        su.evolve(1, tau=0.2)
+        assert all(t.data.device.type == torch.device(dev).type
+                   for t in su.state)
+        out[str(dev)] = su.gauges
+    assert set(out["cuda"]) == set(out["cpu"])
+    for ix, g in out["cpu"].items():
+        np.testing.assert_allclose(out["cuda"][ix].cpu().numpy(), g.numpy(),
+                                   rtol=0, atol=1e-10)
+    assert dict(ck.LAUNCHES) == before
+
+
+def test_hv1bp_iteration_on_card_matches_cpu(cuda):
+    """One HV1BP iteration, then the converged estimate, of the 3D Ising
+    model in a field (hyper form, 3 x 3 x 3) on the card give the CPU's
+    messages (1e-14) and log Z (1e-12 relative)."""
+    from quimb_torch.tensor import belief_propagation as bp
+
+    out = {}
+    for dev in ("cpu", cuda):
+        tn = quimb_torch.HTN3D_classical_ising_partition_function(
+            3, 3, 3, beta=0.2216544, h=0.1, device=dev)
+        hv = bp.HV1BP(tn)
+        dm = hv.iterate()
+        assert hv.M.device.type == torch.device(dev).type
+        mant, expo = bp.contract_hv1bp(tn, strip_exponent=True)
+        out[str(dev)] = (hv.M.cpu().numpy(), dm,
+                         expo + np.log10(abs(complex(mant))))
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=0,
+                               atol=1e-14)
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-14
+    assert out["cuda"][2] == pytest.approx(out["cpu"][2], rel=1e-12)

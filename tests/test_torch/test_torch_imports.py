@@ -45,6 +45,13 @@ def test_import_never_imports_jax():
         "import quimb_torch.tensor.tnag.compress\n"
         "import quimb_torch.tensor.tnag.tebd\n"
         "import quimb_torch.tensor.circuit.pepo\n"
+        "import quimb_torch.tensor.tn3d, quimb_torch.tensor.tn3d.core\n"
+        "import quimb_torch.tensor.tn3d.tebd\n"
+        "import quimb_torch.tensor.tensor_builder\n"
+        "import quimb_torch.tensor.circuit_gen\n"
+        "import quimb_torch.tensor.belief_propagation\n"
+        "from quimb_torch.tensor.belief_propagation import (\n"
+        "    bp_common, d1bp, d2bp, hv1bp, mps1bp, extras, gbp)\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
     )
@@ -198,6 +205,37 @@ def test_jacobi_and_arbitrary_geometry_never_import_jax_when_used():
         "c = qt.CircuitPEPOSimpleUpdate(N=4, max_bond=4, device='cpu')\n"
         "c.apply_gates([('H', 0), ('CNOT', 0, 1), ('CZ', 1, 2)])\n"
         "c.local_expectation([[1.0, 0.0], [0.0, -1.0]], 1)\n"
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
+    )
+    assert res.returncode == 0, res.stderr
+
+
+def test_3d_layer_and_bp_never_import_jax_when_used():
+    """A 3D boundary and CTMRG contraction, a SimpleUpdate3D step, the
+    network builders, a circuit ansatz, the BP engines (D1BP, D2BP, HV1BP)
+    and the BP gauge load neither jax nor quimb_tpu."""
+    res = _run(
+        "import sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "import quimb_torch as qt\n"
+        "from quimb_torch.tensor import belief_propagation as bp\n"
+        "z = qt.TN3D_classical_ising_partition_function(2, 2, 3, beta=0.2, "
+        "device='cpu')\n"
+        "z.contract_boundary(max_bond=4), z.contract_ctmrg(max_bond=4)\n"
+        "p = qt.PEPS3D.rand(2, 2, 1, 2, seed=1, device='cpu')\n"
+        "qt.SimpleUpdate3D(p, qt.ham_3d_heis(2, 2, 1), D=2).evolve(1, 0.1)\n"
+        "h = qt.HTN3D_classical_ising_partition_function(2, 2, 2, beta=0.2, "
+        "h=0.1, device='cpu')\n"
+        "bp.contract_hv1bp(h), bp.contract_hd1bp(h)\n"
+        "k = qt.HTN_random_ksat(3, 8, alpha=2.0, seed=1, device='cpu')\n"
+        "bp.contract_hv1bp(k)\n"
+        "s = qt.TN_from_edges_rand(qt.edges_2d_square(2, 2), 2, phys_dim=2, "
+        "seed=1, dtype='float64', device='cpu')\n"
+        "bp.contract_d2bp(s), bp.compress_d2bp(s, max_bond=1)\n"
+        "s.gauge_all_belief_propagation()\n"
+        "qt.circ_ansatz_1D_brickwork(4, 2, seed=1, device='cpu').amplitude("
+        "'0000')\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
     )

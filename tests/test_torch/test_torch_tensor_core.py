@@ -607,7 +607,6 @@ DEFERRED = {
     "distance": ("16", lambda tn: tn.distance(tn)),
     "distance_normalized": ("16", lambda tn: tn.distance_normalized(tn)),
     "tensor_distance": ("16", lambda tn: tn["I0"].distance(tn["I0"])),
-    "gauge_all_bp": ("16", lambda tn: tn.gauge_all_belief_propagation()),
     "draw": ("16", lambda tn: tn.draw()),
     "graph": ("16", lambda tn: tn.graph()),
     "draw_3d": ("16", lambda tn: tn.draw_3d()),
@@ -630,6 +629,35 @@ def test_deferred_methods_name_their_item(name):
     tn = build(ttn, mps_arrays(L=4))
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         call(tn)
+
+
+BP_GAUGES = {
+    "mps": (lambda: mps_arrays(L=5), lambda tn: tn.gauge_all_belief_propagation(
+        tol=1e-10)),
+    "grid": (lambda: grid_arrays(), lambda tn: tn.gauge_all_belief_propagation(
+        max_iterations=30)),
+    "gauge_all bp": (lambda: grid_arrays(2, 2, seed=3), lambda tn: tn.gauge_all(
+        method="bp", max_iterations=20)),
+    "in place": (lambda: grid_arrays(1, 3, seed=4), lambda tn:
+                 tn.gauge_all_belief_propagation_(damping=0.1) and tn),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BP_GAUGES))
+def test_gauge_all_belief_propagation_matches(name):
+    """Once deferred to ROADMAP item 16(c): the 1-norm BP gauge gives
+    quimb_tpu's tensors (the same tids, so one order of messages), and
+    keeps the network's value (an exact contraction of a few hundred
+    numbers: 1e-12)."""
+    arrays, call = BP_GAUGES[name]
+    t, j = both(arrays())
+    value = _dense(t)
+    gt, gj = call(t), call(j)
+    for tid in gj.tensor_map:
+        np.testing.assert_allclose(_np(gt.tensor_map[tid].data),
+                                   _np(gj.tensor_map[tid].data),
+                                   rtol=1e-10, atol=1e-12)
+    _assert_close(gt, value, rtol=1e-12)
 
 
 # the methods that were deferred until simplify.py and gating.py were

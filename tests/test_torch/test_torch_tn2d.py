@@ -519,6 +519,21 @@ def test_left_out_parts_name_their_item(call, item):
     lambda: ttn.TN_from_edges_rand(ttn.edges_2d_square(2, 2), 2, phys_dim=2),
     lambda: convert.from_tpu_tngen(jtn.TN_from_edges_and_fill_fn(
         np.ones, jtn.edges_2d_square(2, 2), 2, phys_dim=2)),
+    lambda: ttn.PEPS3D.rand(2, 1, 2, 2),
+    lambda: ttn.PEPS3D.from_fill_fn(np.ones, 1, 2, 2, 2),
+    lambda: convert.from_tpu_tn3d(jtn.PEPS3D.from_fill_fn(
+        np.ones, 1, 2, 2, 2)),
+    lambda: ttn.TN3D_classical_ising_partition_function(2, 2, 2, beta=0.3),
+    lambda: ttn.HTN3D_classical_ising_partition_function(2, 2, 2, beta=0.3,
+                                                         h=0.1),
+    lambda: ttn.TN2D_rand(2, 2, 2, seed=1),
+    lambda: ttn.TN2D_empty(2, 2, 2),
+    lambda: ttn.TN3D_with_value(1.0, 2, 2, 1, 2),
+    lambda: ttn.TN2D_corner_double_line(2, 2),
+    lambda: ttn.HTN_random_ksat(3, 5, alpha=2.0, seed=1),
+    lambda: ttn.TN_from_sites_computational_state({0: "0", 1: "+"}),
+    lambda: ttn.TN2D_embedded_classical_ising_partition_function(
+        np.tril(np.ones((3, 3)), -1), 0.3),
 ])
 def test_entry_points_default_to_the_gpu(build):
     """With no ``device``, a 2D builder puts its tensors on the GPU; with no

@@ -293,24 +293,40 @@ def test_partial_trace_and_sample_match():
         j.sample_configuration_cluster(seed=3, gauges=gj)[0]
 
 
-@pytest.mark.parametrize("call", [
-    lambda tn, G, w: tn.local_expectation(G, w, method="gloop-expand"),
-    lambda tn, G, w: tn.local_expectation(G, w, method="sloop-expand"),
-    lambda tn, G, w: tn.local_expectation_gloop_expand(G, w),
-    lambda tn, G, w: tn.norm_gloop_expand(),
-    lambda tn, G, w: tn.compute_local_expectation_gloop_expand({w: G}),
-    lambda tn, G, w: tn.compute_local_expectation_sloop_expand({w: G}),
-])
+LOOP_EXPANSIONS = [
+    (lambda tn, G, w: tn.local_expectation(G, w, method="gloop-expand"),
+     lambda tn, G, w: tn.local_expectation_gloop_expand(G, w)),
+    (lambda tn, G, w: tn.local_expectation(G, w, method="sloop-expand"),
+     lambda tn, G, w: tn.local_expectation_gloop_expand(G, w,
+                                                        loops="sloops")),
+    (lambda tn, G, w: tn.local_expectation_gloop_expand(G, w, max_size=6),
+     lambda tn, G, w: tn.local_expectation_gloop_expand(G, w, max_size=6)),
+    (lambda tn, G, w: tn.norm_gloop_expand(),
+     lambda tn, G, w: tn.norm_gloop_expand()),
+    (lambda tn, G, w: tn.compute_local_expectation_gloop_expand({w: G}),
+     lambda tn, G, w: tn.local_expectation_gloop_expand(G, w)),
+    (lambda tn, G, w: tn.compute_local_expectation_sloop_expand({w: G}),
+     lambda tn, G, w: tn.local_expectation_gloop_expand(G, w,
+                                                        loops="sloops")),
+]
+
+
+@pytest.mark.parametrize("call", range(len(LOOP_EXPANSIONS)))
 def test_loop_expansions_name_their_item(call):
-    """The loop expansions need belief propagation's RegionGraph, which
-    ROADMAP item 16(c) ports: they raise naming it. (quimb_tpu's
-    ``compute_local_expectation_gloop_expand`` passes ``method="gloop"``,
-    which its dispatcher reads as the cluster method; the port's names
-    the expansion.)"""
-    _, t = _pair(seed=9)
-    with pytest.raises(NotImplementedError,
-                       match=re.escape("item 16(c)")):
-        call(t, _herm(4), (t.sites[0], t.sites[1]))
+    """The loop expansions, once deferred to ROADMAP item 16(c) (which
+    ported belief propagation's RegionGraph), give quimb_tpu's values.
+    quimb_tpu's ``compute_local_expectation_gloop_expand`` passes
+    ``method="gloop"``, which its dispatcher reads as the cluster method;
+    the port's names the expansion, so those two cases are held to
+    quimb_tpu's ``local_expectation_gloop_expand``. Counting numbers are
+    integers and each region a small exact contraction: 1e-10."""
+    port, ref = LOOP_EXPANSIONS[call]
+    j, t = _pair(seed=9)
+    where = (t.sites[0], t.sites[1])
+    G = _herm(4)
+    got, want = port(t, G, where), ref(j, G, where)
+    assert complex(got) == pytest.approx(complex(want), rel=1e-10,
+                                         abs=1e-12)
 
 
 # -- combinators -------------------------------------------------------------
