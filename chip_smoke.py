@@ -106,7 +106,7 @@ failure:
    host rewrite (``rehearse=True``) and the contraction alone on the card.
    Gated: the circuit on the GPU; every pairwise step of an amplitude on
    CUDA tensors; each amplitude within 1e-9 (complex128) or 1e-3
-   (complex64) relative of REFBASE's; ``sample(10, seed=42)`` in
+   (complex64) relative of REFBASE's; ``sample(5, seed=42)`` in
    complex128 equal to quimb_tpu's strings, its steps on CUDA tensors;
    no sandwich kernel launched. Printed: each expression's flops, width
    and steps, ``amp0`` by ``backend="numpy"``, the busy share over one
@@ -181,8 +181,8 @@ failure:
    outgrow the card), each timed and held to the "mps" value and to
    quimb_tpu's value within 1e-8; (b)
    FullUpdate (ALS) and SimpleUpdate of the 4x4 Heisenberg model at D=3,
-   chi=32 from ``default_rng(42)`` start arrays, 2 steps at tau=0.3 then
-   2 at 0.1: FullUpdate's energy below SimpleUpdate's and within 1e-8
+   chi=32 from ``default_rng(42)`` start arrays, 1 step at tau=0.3 then
+   1 at 0.1: FullUpdate's energy below SimpleUpdate's and within 1e-8
    relative of quimb_tpu's; seconds and host syncs a gate, peak
    allocation;
 20. (after phase 17) ``JacobiDMRG`` from the float64 DMRG2 state (L=128,
@@ -195,7 +195,7 @@ failure:
    half-sweep;
 21. the arbitrary-geometry layer: (a) ``SimpleUpdateGen`` of the kagome
    Heisenberg antiferromagnet (``edges_2d_kagome(6, 6)``, 108 sites, D=4,
-   float64, start arrays from ``default_rng(42)``, five steps at each of
+   float64, start arrays from ``default_rng(42)``, two steps at each of
    tau = 0.3, 0.1, 0.03) through entry points with no device, its energy
    per site by ``compute_local_expectation(method="cluster")`` on gauges
    from ``gauge_all_simple(max_iterations=20)`` within 1e-6 relative of
@@ -222,7 +222,7 @@ failure:
    calls a second, and host syncs and the busy share over one plane of the
    L=8 CTMRG; (b) ``SimpleUpdate3D`` of the 3D Heisenberg model
    (``ham_3d_heis(4, 4, 4)``) on a 4x4x4 ``PEPS3D`` at D=3 from
-   ``default_rng(42)``, five steps at each of tau = 0.3, 0.1, 0.03: the 144
+   ``default_rng(42)``, two steps at each of tau = 0.3, 0.1, 0.03: the 144
    gauge vectors within 1e-6, the BP energy (``D2BP.local_expectation``
    over the 144 bonds) within 1e-6 relative; seconds a step, gates a
    second, host syncs a gate, and the boundary norm at max_bond 9 reckoned
@@ -240,8 +240,39 @@ failure:
    (``HTN_random_ksat(3, 1000, alpha=3.0, seed=7)``) by ``HV1BP``, each log
    Z within 1e-8 relative of quimb_tpu's and the two engines within 1e-6
    of each other; iterations, seconds and host reads an iteration, shape
-   groups, and the busy share over three HV1BP iterations. No phase from
-   17 on launches a sandwich kernel.
+   groups, and the busy share over three HV1BP iterations;
+24. optimisation and fitting, held to quimb_tpu's float64 values from
+   ``scripts/slice14_reference.py``: (a) (after phase 14) H|psi> of the
+   float64 DMRG2 state (bond 1280) compressed back to 256 (cutoff 1e-10)
+   through
+   ``tensor_network_1d_compress`` by ``dm``, ``fit``, ``src-oversample``,
+   ``projector`` and ``bidm``, and by ``compress_all_1d`` of the
+   contracted H|psi>: each infidelity 1 - F against the uncompressed
+   H|psi> (exact overlaps by site sweeps on the card) within 10 (F_dm +
+   (L / 32) F_rehearsal) of the method's own CPU rehearsal at L=32,
+   chi=64, and each bond at most 256; seconds and peak allocation;
+   (b) ``TNOptimizer`` on an L=128, chi=256 float64 MPS from
+   ``default_rng(42)`` (normalised site by site), the Rayleigh quotient of
+   the Heisenberg MPO contracted site by site (chi^3): 10 L-BFGS-B
+   iterations, then 10 Adam steps, each loss within 1e-8 relative of
+   quimb_tpu's sequence from the same arrays, L-BFGS-B's falling, the
+   parameters on the card throughout; seconds an evaluation and the host
+   bytes of scipy's vector; (c) ``ClusterUpdateGen`` (cluster distance
+   1) on phase 21(a)'s kagome model from its start arrays at tau 0.3, as
+   many steps as keep the sub-phase near 40 s (at least one, at most
+   four): the
+   energy per site by phase 21(a)'s estimator within 1e-8 relative of
+   quimb_tpu's after as many steps; gates a second and host reads a gate;
+25. (after phase 24(a)) the spectral estimates: the 10-site middle block
+   of the DMRG2 state, canonized around it, as the network of rho_A (ket
+   and bra block tensors, the boundary bonds joined) and a
+   ``TNLinearOperator``: Tr rho log2 rho by
+   ``tensor_network_approx_spectral_function`` (1024 probes batched in one
+   product) within the estimator's stopping rule (tol x scale) of the
+   exact value from ``eigvalsh`` of the dense 1024 x 1024 rho
+   (``to_dense`` on the card); ``rsvd(rho, 16, p=8)`` against
+   ``torch.linalg.svdvals`` within ten times quimb_tpu's own distance on
+   the rehearsal's matrix. No phase from 17 on launches a sandwich kernel.
 
 The line before the last is the kernels' JSON summary, one entry per
 kernel with its launches on its paths (DMRG2 and ParallelDMRG for
@@ -252,7 +283,8 @@ kernel: its matvec is plain PyTorch, measured in phase 11; nor do the
 circuit, the MPS layer and the PEPS: quimb_tpu's have no Pallas kernel,
 and their products run as batched ``matmul``, QR and SVD on the card;
 nor do complex DMRG, the rings, HOTRG, CTMRG, FullUpdate, JacobiDMRG,
-the arbitrary-geometry layer, the 3D layer and belief propagation
+the arbitrary-geometry layer, the 3D layer, belief propagation, the
+optimizer, the fits, the cluster update and the spectral estimates
 (quimb_tpu runs them on its einsum, QR, SVD, Cholesky and eigh; HV1BP's
 batched updates are ``torch.einsum`` over stacked tensors, as quimb_tpu's
 are ``jax.vmap`` of einsums). The last line is ``{"ok": true, "device": {...}}``.
@@ -1473,22 +1505,17 @@ CIRC_N, CIRC_DEPTH, CIRC_SAMPLES, CIRC_SEED = 53, 12, 20, 42
 # 466-tensor contraction); complex64 reaches the order of quimb_tpu's TPU
 # run (3e-5)
 CIRC_AMP_TOL = {torch.complex128: 1e-9, torch.complex64: 1e-3}
-# quimb_tpu's strings of ``Circuit.sample(10, seed=42)`` on this circuit,
-# from ``JAX_PLATFORMS=cpu python scripts/circuit53_samples.py 10`` on a CPU
+# quimb_tpu's strings of ``Circuit.sample(5, seed=42)`` on this circuit,
+# from ``JAX_PLATFORMS=cpu python scripts/circuit53_samples.py 5`` on a CPU
 # (20 samples until the 3D and BP phases were added: a draw of 20 took
-# 33-58 s on the card)
-CIRC_DENSE_SAMPLES = 10
+# 33-58 s on the card; 10 until phases 24-25 were added)
+CIRC_DENSE_SAMPLES = 5
 CIRC_REF_SAMPLES = (
-    "10111011011111111010101101110111000001011001000110101",
-    "01011110000111010111111011111101100110000010101011110",
-    "11000001101101111101011011111011101110100111100010110",
-    "10000000111000111001010100010101011100101101010111100",
-    "01010101101110100110010011101011111001101011110001000",
-    "11000010010110000100100100111110000001101011111101111",
-    "10001110000010000100101000010110000111101110111000101",
-    "11011100000011010110000110000100111100011000000000001",
-    "01111001010100001000100111111011010101010011010110000",
-    "01101010011000111010010100110010011101010010000010110",
+    "10111111010000001000110010001110000101011111111110101",
+    "01011100101111100010011100000110001011100101000011110",
+    "11000011011000100000001100001111100010000011010010110",
+    "10000001011100100111100010011101100110001101100101100",
+    "01010100010011111110011110011101000110011100011001000",
 )
 
 
@@ -2618,7 +2645,7 @@ NORM_MPS_TOL = {"mps": 0.0, "full_bond": 3e-4, "ctmrg": 2e-2,
 HOTRG_CHI = 16
 # FullUpdate: the lattice and schedule of scripts/slice11_reference.py, and
 # the bound on the energy's distance from quimb_tpu's float64 value
-FU_L, FU_D, FU_CHI, FU_SCHEDULE = 4, 3, 32, ((2, 0.3), (2, 0.1))
+FU_L, FU_D, FU_CHI, FU_SCHEDULE = 4, 3, 32, ((1, 0.3), (1, 0.1))
 FU_E_TOL = 1e-8
 
 
@@ -2813,13 +2840,13 @@ def run_jacobi(dmrg2):
 # ``python scripts/slice12_reference.py`` on a CPU (see its docstring)
 SLICE12_REF = "scripts/slice12_reference.json"
 # the kagome Heisenberg antiferromagnet: the open 6 x 6 lattice (108
-# sites), D=4, five imaginary-time steps at each tau (ten until the 3D and
-# BP phases were added); the cluster energy's simple gauging capped at 20
+# sites), D=4, two imaginary-time steps at each tau (ten until the 3D and
+# BP phases were added, five until phases 24-25 were); the cluster energy's simple gauging capped at 20
 # iterations (at 100 it ran to its cap without reaching its tolerance,
 # 45-55 s on the card); the bound on the energy per site relative to
 # quimb_tpu's of the same protocol from the same start arrays
 # (scripts/slice13_reference.py, part "kagome")
-KAGOME_L, KAGOME_D, KAGOME_NITS, KAGOME_TAUS = 6, 4, 5, (0.3, 0.1, 0.03)
+KAGOME_L, KAGOME_D, KAGOME_NITS, KAGOME_TAUS = 6, 4, 2, (0.3, 0.1, 0.03)
 KAGOME_GAUGE_ITERATIONS = 20
 KAGOME_E_TOL, KAGOME_THREADS = 1e-6, 4
 # <Z_q> of phase 16's 4x4 circuit by CircuitPEPOSimpleUpdate, against the
@@ -3073,10 +3100,11 @@ ISING_TOL = 1e-8
 # converges on this positive network
 ISING_GAUGE_L = 6
 # SimpleUpdate3D of the 3D Heisenberg antiferromagnet: a 4 x 4 x 4 PEPS3D
-# at D=3 from default_rng(42), five steps at each tau; the bounds on the
+# at D=3 from default_rng(42), two steps at each tau (five until phases
+# 24-25 were added); the bounds on the
 # gauges and on the BP energy (D2BP over the 144 bonds), and the boundary
 # bond of the (not gated) norm
-P3D_L, P3D_D, P3D_NITS, P3D_TAUS, P3D_SEED = 4, 3, 5, (0.3, 0.1, 0.03), 42
+P3D_L, P3D_D, P3D_NITS, P3D_TAUS, P3D_SEED = 4, 3, 2, (0.3, 0.1, 0.03), 42
 P3D_GAUGE_TOL, P3D_E_TOL, P3D_NORM_CHI = 1e-6, 1e-6, 9
 # D2BP on phase 16's state: the bound on the BP norm, energy and the site
 # tensors' norms after compress_d2bp (and after the BP gauge of the Ising
@@ -3480,6 +3508,369 @@ def run_hyper_bp():
           flush=True)
 
 
+# -- phases 24-25: optimisation, fitting and the spectral estimates --------
+
+# quimb_tpu's float64 values of phases 24-25 and the CPU rehearsals of
+# 24(a) and 25, from ``python scripts/slice14_reference.py`` on a CPU
+SLICE14_REF = "scripts/slice14_reference.json"
+# 24(a): the methods beside dm, and the bound on each infidelity: ten
+# times dm's on this state plus the method's own rehearsal infidelity
+# (quimb_tpu, L=32, chi=64) scaled by L / 32
+COMPRESS_1D_METHODS = ("fit", "src-oversample", "projector", "bidm")
+COMPRESS_1D_FACTOR = 10
+# the dispatcher's default cutoff: at cutoff 0 bidm keeps rounding-level
+# singular values and divides by their square roots, which on the card
+# spoiled its result (infidelity 0.91; 1e-12 on a CPU at L=64, chi=128)
+COMPRESS_1D_CUTOFF = 1e-10
+COMPRESS_1D_SEED = 7
+# 24(b): the start state, the iterations, and the bound on each loss
+# relative to quimb_tpu's (the port's CPU run reads 1e-15 from it at L=8)
+OPT_SEED, OPT_LBFGS_ITS, OPT_ADAM_STEPS, OPT_ADAM_LR = 42, 10, 10, 0.01
+OPT_REL_TOL = 1e-8
+# 24(c): tau, the steps' time budget (with the energy's 15-20 s, the
+# sub-phase near 40 s) and the most steps quimb_tpu ran
+CLUSTER_TAU, CLUSTER_SECONDS, CLUSTER_MAX_STEPS = 0.3, 25.0, 4
+CLUSTER_E_TOL = 1e-8
+# 25: the block, the SLQ settings (one wave of 1024 probes: the standard
+# error at stopping then sits well inside tol x scale), and the rsvd
+SPEC_BLOCK, SLQ_SEED, SLQ_TOL, SLQ_R_MIN = 10, 7, 0.05, 1024
+RSVD_K, RSVD_P, RSVD_FACTOR = 16, 8, 10
+
+
+def _slice14_reference(part):
+    return json.loads(Path(SLICE14_REF).read_text())[part]
+
+
+def _chain_lpr(tn, psi):
+    """The (l, p, r) arrays of a one-tensor-per-site chain with ``psi``'s
+    site tags and indices, the ends padded with size-1 bonds."""
+    ts = [tn[psi.site_tag(i)] for i in range(psi.L)]
+    out = []
+    for i, t in enumerate(ts):
+        lb = [ix for ix in t.inds if i > 0 and ix in ts[i - 1].inds]
+        rb = [ix for ix in t.inds if i < psi.L - 1 and ix in ts[i + 1].inds]
+        a = t.transpose(*lb, psi.site_ind(i), *rb).data
+        out.append(a.reshape(max(1, math.prod(a.shape[:len(lb)])),
+                             a.shape[len(lb)], -1))
+    return out
+
+
+def _card_overlap(As, Bs, Ws):
+    """<B|W|A> of uniform (l, p, r) arrays and (wl, wr, u, d) MPO arrays
+    (``None``: the identity), by one site sweep on the card."""
+    env = torch.ones((1, 1, 1), dtype=torch.float64, device="cuda")
+    for i, (A, B) in enumerate(zip(As, Bs)):
+        T = torch.einsum("awb,bpr->awpr", env, A)
+        if Ws is not None:
+            T = torch.einsum("awpr,wxqp->axqr", T, Ws[i])
+        env = torch.einsum("awqr,aqs->swr", T, B.conj())
+    return float(env.reshape(()))
+
+
+def _card_h2(As, Ws):
+    """<H psi|H psi> by one site sweep on the card."""
+    env = torch.ones((1, 1, 1, 1), dtype=torch.float64, device="cuda")
+    for A, W in zip(As, Ws):
+        T = torch.einsum("avwb,bpr->avwpr", env, A)
+        T = torch.einsum("avwpr,wyqp->avyqr", T, W)
+        T = torch.einsum("avyqr,vxcq->axycr", T, W.conj())
+        env = torch.einsum("axycr,acs->sxyr", T, A.conj())
+    return float(env.reshape(()))
+
+
+def run_compress_1d(dmrg):
+    """Phase 24(a): H|psi> of the north-star state compressed back to 256
+    by each 1D method, and by compress_all_1d."""
+    from quimb_torch.tensor.tn1d import compress as tcomp
+
+    t_phase = time.perf_counter()
+    ref = _slice14_reference("compress")
+    if ref.get("cutoff") != COMPRESS_1D_CUTOFF:
+        raise AssertionError(f"{SLICE14_REF} holds another compression "
+                             f"rehearsal")
+    _reset_launches()
+    psi = dmrg.state
+    H = quimb_torch.MPO_ham_heis(L, dtype=torch.float64, device="cuda")
+    As, Ws = _arrays(psi), _arrays(H)
+    hh = _card_h2(As, Ws)
+    site_tags = [psi.site_tag(i) for i in range(L)]
+
+    def infidelity(out):
+        Bs = _chain_lpr(out, psi)
+        if not all(b.is_cuda and b.shape[2] <= CHI for b in Bs):
+            raise AssertionError("a compressed site left the card or its "
+                                 "bond exceeds 256")
+        return 1 - _card_overlap(As, Bs, Ws) ** 2 / (
+            _card_overlap(Bs, Bs, None) * hh)
+
+    results = {}
+    for method in ("dm", *COMPRESS_1D_METHODS):
+        kw = {"seed": COMPRESS_1D_SEED} if method.startswith("src") else {}
+        base = _fresh_peak()
+        tn = tcomp._lazy_mpo_mps_tn(H, psi)
+        out, secs = _timed(lambda: tcomp.tensor_network_1d_compress(
+            tn, max_bond=CHI, cutoff=COMPRESS_1D_CUTOFF, method=method,
+            site_tags=site_tags, **kw))
+        results[method] = (infidelity(out), secs, _peak_from(base))
+        del tn, out
+    base = _fresh_peak()
+    Hpsi = H.apply(psi)
+    out, secs = _timed(lambda: Hpsi.compress_all_1d(
+        max_bond=CHI, cutoff=COMPRESS_1D_CUTOFF))
+    results["compress_all_1d"] = (infidelity(out), secs, _peak_from(base))
+    del Hpsi, out
+    dm = results["dm"][0]
+    failed = []
+    for method, (inf, secs, peak) in results.items():
+        rehearsal = ref["quimb_tpu"][
+            "dm" if method == "compress_all_1d" else method]
+        bound = COMPRESS_1D_FACTOR * (dm + L / ref["L"] * rehearsal)
+        print(f"compress H|psi> (bond {5 * CHI}) to {CHI} by {method}: "
+              f"{secs:.3f} s, peak allocation {peak:.3f} GB, infidelity "
+              f"{inf:.6e} (dm's {dm:.6e}; quimb_tpu's rehearsal at L="
+              f"{ref['L']}, chi={ref['chi']}: {rehearsal:.3e}, the port's "
+              f"{ref['quimb_torch'].get(method, ref['quimb_torch']['dm']):.3e}"
+              f"; bound {bound:.3e})", flush=True)
+        if not (math.isfinite(inf) and inf <= bound):
+            failed.append(method)
+    if failed:
+        raise AssertionError(f"the compressions {failed} miss their bounds")
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError("the 1D compressions launched a sandwich "
+                             "kernel")
+    torch.cuda.empty_cache()
+    print(f"1D compression phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def opt_start_arrays(L, chi, seed, phys_dim=2):
+    """scripts/slice14_reference.py's start arrays: (l, r, p) standard
+    normal draws of ``default_rng(seed)`` in the shapes of
+    ``MPS_rand_state``, each scaled so that the left norm environment
+    after its site has unit trace (edges padded)."""
+    rng = np.random.default_rng(seed)
+    arrays, env = [], np.ones((1, 1))
+    for i in range(L):
+        chil = min(chi, phys_dim**i, phys_dim**(L - i))
+        chir = min(chi, phys_dim**(i + 1), phys_dim**(L - i - 1))
+        A = rng.standard_normal((chil, chir, phys_dim))
+        new = np.tensordot(np.tensordot(env, A, (0, 0)), A, ((0, 2), (0, 2)))
+        A = A / np.sqrt(np.trace(new))
+        env = new / np.trace(new)
+        arrays.append(A)
+    return arrays
+
+
+def rayleigh_quotient(As, Ws):
+    """<psi|H|psi> / <psi|psi> of (l, r, p) arrays and (wl, wr, u, d) MPO
+    arrays (edges padded), site by site (chi^3), in the order of
+    scripts/slice14_reference.py: both environments divided at each site
+    by the norm environment's Frobenius norm (Adam grows the parameters;
+    past <psi|psi> of about 1e154 JAX's gradient of the plain quotient
+    overflowed to 0)."""
+    env = torch.ones((1, 1, 1), dtype=As[0].dtype, device=As[0].device)
+    nrm = torch.ones((1, 1), dtype=As[0].dtype, device=As[0].device)
+    for A, W in zip(As, Ws):
+        T = torch.einsum("awb,brp->awrp", env, A)
+        T = torch.einsum("awrp,wxqp->axrq", T, W)
+        env = torch.einsum("axrq,asq->sxr", T, A.conj())
+        n = torch.einsum("ab,brp->arp", nrm, A)
+        nrm = torch.einsum("arp,asp->sr", n, A.conj())
+        c = torch.linalg.norm(nrm)
+        env, nrm = env / c, nrm / c
+    return (env.reshape(()) / nrm.reshape(())).real
+
+
+def run_tnoptimizer():
+    """Phase 24(b): TNOptimizer at the north star, L-BFGS-B then Adam,
+    against quimb_tpu's losses from the same arrays."""
+    from quimb_torch.tensor import optimize as topt
+
+    t_phase = time.perf_counter()
+    ref = _slice14_reference("optimizer")
+    if (ref["L"], ref["chi"], ref["seed"]) != (L, CHI, OPT_SEED):
+        raise AssertionError(f"{SLICE14_REF} holds another optimizer run")
+    _reset_launches()
+    arrays = opt_start_arrays(L, CHI, OPT_SEED)
+    arrays = [arrays[0][0]] + arrays[1:-1] + [arrays[-1][:, 0]]
+    psi = quimb_torch.MatrixProductState(
+        [torch.as_tensor(a, device="cuda") for a in arrays], shape="lrp")
+    H = quimb_torch.MPO_ham_heis(L, dtype=torch.float64, device="cuda")
+    Ws = [t.data for t in H]
+    Ws = [Ws[0][None]] + Ws[1:-1] + [Ws[-1][:, None]]
+
+    def loss(psi):
+        As = [psi[psi.site_tag(i)].data for i in range(psi.L)]
+        return rayleigh_quotient([As[0][None]] + As[1:-1]
+                                 + [As[-1][:, None]], Ws)
+
+    copies = {"pack": 0, "unpack": 0}
+    orig = {k: getattr(topt.Vectorizer, k) for k in copies}
+
+    def counting(name):
+        def fn(self, *args):
+            copies[name] += 1
+            return orig[name](self, *args)
+        return fn
+
+    for name in copies:
+        setattr(topt.Vectorizer, name, counting(name))
+    failed = []
+    try:
+        for name, n, kw in (("lbfgsb", OPT_LBFGS_ITS, {}),
+                            ("adam", OPT_ADAM_STEPS,
+                             dict(optimizer="adam",
+                                  learning_rate=OPT_ADAM_LR))):
+            for k in copies:
+                copies[k] = 0
+            opt = quimb_torch.TNOptimizer(psi, loss, progbar=False, **kw)
+            tn, secs = _timed(lambda: opt.optimize(n))
+            got = np.array(opt.losses)
+            want = np.array(ref[name]["losses"])
+            rel = (np.max(np.abs(got - want) / np.abs(want))
+                   if got.shape == want.shape else float("inf"))
+            on_card = (all(p.is_cuda for p in opt.params.values())
+                       and all(t.data.is_cuda for t in tn))
+            print(f"TNOptimizer {name} at L={L}, chi={CHI} ({opt.d} real "
+                  f"parameters): {n} iterations, {opt.nevals} loss "
+                  f"evaluations in {secs:.3f} s ({secs / opt.nevals:.3f} s "
+                  f"each; quimb_tpu's host run {ref[name]['seconds']:.1f} "
+                  f"s); losses {got[0]!r} -> {got[-1]!r}, largest distance "
+                  f"from quimb_tpu's {rel:.3e} (bound {OPT_REL_TOL:.0e}); "
+                  f"host vectors: {copies['pack']} packed, "
+                  f"{copies['unpack']} unpacked, "
+                  f"{8 * opt.d / 1e6:.1f} MB each", flush=True)
+            if not (rel <= OPT_REL_TOL and on_card):
+                failed.append(name)
+            if name == "lbfgsb" and not got[-1] < got[0]:
+                failed.append("lbfgsb does not fall")
+            del opt, tn
+    finally:
+        for name, fn in orig.items():
+            setattr(topt.Vectorizer, name, fn)
+    if failed:
+        raise AssertionError(f"TNOptimizer: {failed}")
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError("TNOptimizer launched a sandwich kernel")
+    torch.cuda.empty_cache()
+    print(f"TNOptimizer phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def run_cluster_update():
+    """Phase 24(c): ClusterUpdateGen on the kagome model, against
+    quimb_tpu's energy after as many steps."""
+    from quimb_torch.experimental import ClusterUpdateGen, cluster_update
+
+    t_phase = time.perf_counter()
+    ref = _slice14_reference("cluster")
+    if (ref["L"], ref["D"], ref["tau"], ref["gauge_iterations"]) != (
+            KAGOME_L, KAGOME_D, CLUSTER_TAU, KAGOME_GAUGE_ITERATIONS):
+        raise AssertionError(f"{SLICE14_REF} holds another cluster run")
+    _reset_launches()
+    edges = quimb_torch.edges_2d_kagome(KAGOME_L, KAGOME_L)
+    rng = np.random.default_rng(42)
+    psi0 = quimb_torch.TN_from_edges_and_fill_fn(
+        lambda shape: rng.standard_normal(shape), edges, KAGOME_D,
+        phys_dim=2)
+    ham = quimb_torch.ham_gen_heis(edges)
+    nb = len(ham.terms)
+    cluster_update.HOST_READS.clear()
+    su = ClusterUpdateGen(psi0, ham, D=KAGOME_D, cluster_distance=1,
+                          compute_energy_final=False)
+    secs = []
+    while len(secs) < min(CLUSTER_MAX_STEPS, len(ref["energy_per_site"])):
+        _, t = _timed(lambda: su.evolve(1, tau=CLUSTER_TAU))
+        secs.append(t)
+        if sum(secs) + t > CLUSTER_SECONDS:
+            break
+    steps = len(secs)
+    reads = dict(cluster_update.HOST_READS)
+    gauges = {}
+    tn, gsecs = _timed(lambda: su.get_state().gauge_all_simple(
+        max_iterations=KAGOME_GAUGE_ITERATIONS, gauges=gauges))
+    with ThreadPoolExecutor(KAGOME_THREADS) as ex:
+        e, csecs = _timed(lambda: tn.compute_local_expectation(
+            ham.terms, method="cluster", gauges=gauges, executor=ex))
+    e_site = float(np.real(e)) / psi0.nsites
+    want = ref["energy_per_site"][steps - 1]
+    rel = abs(e_site - want) / abs(want)
+    print(f"ClusterUpdateGen kagome {KAGOME_L}x{KAGOME_L} ({psi0.nsites} "
+          f"sites, {nb} bonds), D={KAGOME_D}, tau {CLUSTER_TAU}: {steps} "
+          f"steps in {sum(secs):.3f} s ({', '.join(f'{t:.2f}' for t in secs)}"
+          f"; quimb_tpu's host run {sum(ref['step_seconds'][:steps]):.1f} "
+          f"s), {steps * nb / sum(secs):.1f} gates a second; host reads a "
+          f"gate: {reads.get('site norm', 0) / (steps * nb):.2f} site norms, "
+          f"{reads.get('als cost', 0) / (steps * nb):.2f} ALS costs; energy "
+          f"({gsecs:.3f} + {csecs:.3f} s) E/site {e_site!r}, quimb_tpu's "
+          f"{want!r}, relative {rel:.3e} (bound {CLUSTER_E_TOL:.0e})",
+          flush=True)
+    if not all(t.data.is_cuda for t in su.state):
+        raise AssertionError("ClusterUpdateGen left the card")
+    if not rel <= CLUSTER_E_TOL:
+        raise AssertionError("the cluster-update energy misses quimb_tpu's")
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError("ClusterUpdateGen launched a sandwich kernel")
+    print(f"cluster update phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def run_spectral(dmrg):
+    """Phase 25: SLQ of a 10-site block's reduced density matrix as a
+    lazy network, against its exact spectrum, and rsvd of it."""
+    t_phase = time.perf_counter()
+    ref = _slice14_reference("spectral")
+    _reset_launches()
+    start = L // 2 - SPEC_BLOCK // 2
+    block = range(start, start + SPEC_BLOCK)
+    psi = dmrg.state.copy()
+    psi.canonize((block[0], block[-1]))
+    ket = quimb_torch.TensorNetwork([psi[psi.site_tag(i)].copy()
+                                     for i in block])
+    bra = ket.conj().reindex({psi.site_ind(i): f"b{i}" for i in block})
+    bra.mangle_inner_()
+    A = quimb_torch.TNLinearOperator(
+        ket & bra, [psi.site_ind(i) for i in block],
+        [f"b{i}" for i in block])
+    rho, dsecs = _timed(A.to_dense)
+    _on_card("rho_A", rho, torch.float64)
+    w = torch.clamp(torch.linalg.eigvalsh(rho), min=0)
+    exact = float(torch.sum(torch.where(
+        w > 0, w * torch.log2(torch.where(w > 0, w, 1.0)), 0.0)))
+    info = {}
+    est, secs = _timed(lambda: quimb_torch.
+                       tensor_network_approx_spectral_function(
+                           A, quimb_torch.xlogx, pos=True, seed=SLQ_SEED,
+                           tol=SLQ_TOL,
+                           R_min=SLQ_R_MIN, info=info))
+    gap = abs(est - exact)
+    print(f"SLQ of rho_A ({SPEC_BLOCK} sites, {A.shape[0]} x {A.shape[1]}, "
+          f"{ket.num_tensors * 2} tensors): Tr rho log2 rho {est!r} in "
+          f"{secs:.3f} s ({info['R']} probes, K={info['K']} Lanczos steps, "
+          f"standard error {info['error']:.3e}); exact {exact!r} (dense "
+          f"rho {dsecs:.3f} s, trace {float(torch.trace(rho))!r}); "
+          f"distance {gap:.3e}, bound tol x scale "
+          f"{SLQ_TOL * info['scale']:.3e}; S = {-est!r} bits", flush=True)
+    if not gap <= SLQ_TOL * info["scale"]:
+        raise AssertionError("the SLQ entropy misses the exact one")
+    (U, s, VH), rsecs = _timed(lambda: quimb_torch.rsvd(
+        rho, RSVD_K, p=RSVD_P, seed=SLQ_SEED))
+    sv = torch.linalg.svdvals(rho)
+    rel = float(torch.max(torch.abs(s - sv[:RSVD_K])) / sv[0])
+    bound = max(RSVD_FACTOR * ref["rsvd_max_rel"], 1e-13)
+    print(f"rsvd(rho, {RSVD_K}, p={RSVD_P}): {rsecs:.3f} s; largest "
+          f"distance of its values from torch.linalg.svdvals {rel:.3e} of "
+          f"the largest (quimb_tpu's on the rehearsal's rho "
+          f"{ref['rsvd_max_rel']:.3e}; bound {bound:.3e})", flush=True)
+    if not (s.is_cuda and rel <= bound):
+        raise AssertionError("rsvd misses the singular values")
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError("the spectral estimates launched a sandwich "
+                             "kernel")
+    print(f"spectral phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main():
     t_start = time.perf_counter()
     check_device()
@@ -3497,6 +3888,8 @@ def main():
     run_tn_layer(dmrg)
     run_mps_layer(dmrg)
     torch.cuda.empty_cache()
+    run_compress_1d(dmrg)
+    run_spectral(dmrg)
     run_complex_dmrg(dmrg)
     run_jacobi(dmrg)
     del dmrg
@@ -3526,6 +3919,8 @@ def main():
     run_peps16_bp(psi16)
     del psi16
     run_hyper_bp()
+    run_tnoptimizer()
+    run_cluster_update()
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{

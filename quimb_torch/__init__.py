@@ -26,7 +26,12 @@ and ``CircuitPEPOSimpleUpdate``. And the 3D layer (``PEPS3D``,
 classical Ising partition functions, k-SAT counting networks), the circuit
 ansatz generators (``circ_*``) and belief propagation
 (``tensor.belief_propagation``: D1BP, D2BP, the batched HV1BP, MPS1BP, the
-lazy and generalized variants). DMRG sweeps a ring of
+lazy and generalized variants). And optimisation and fitting
+(``TNOptimizer`` by autograd, with the scipy drivers and optax's
+first-order rules; ALS, tree and autodiff fits; the fit, src, projector
+and bidm 1D compressions; ``MERA``; ``experimental.ClusterUpdateGen``),
+the tensor linear operators (``TNLinearOperator``) and the spectral
+estimates (stochastic Lanczos quadrature, randomized SVDs). DMRG sweeps a ring of
 40 sites or more with its segmented engine, and TEBD evolves rings too;
 ``heisenberg_energy`` is the Heisenberg chain's scaling formula.
 Every builder and entry point
@@ -40,6 +45,27 @@ from .core import device_operator
 from .evo import Evolution
 from .gen.operators import ham_heis
 from .gen.states import computational_state, neel_state
+from .linalg import __all__ as _linalg_all
+from .linalg.approx_spectral import (
+    approx_spectral_function,
+    entropy_subsys_approx,
+    logneg_subsys_approx,
+    negativity_subsys_approx,
+    norm_ppt_subsys_approx,
+    tr_abs_approx,
+    tr_exp_approx,
+    tr_sqrt_approx,
+    tr_sqrt_subsys_approx,
+    tr_xlogx_approx,
+    xlogx,
+)
+from .linalg.rand_linalg import (
+    count_svdvals_needed,
+    estimate_rank,
+    isvd,
+    rsvd,
+    rsvd_iterate,
+)
 from .linalg.base_linalg import (
     eigensystem_partial,
     expm_multiply,
@@ -49,7 +75,7 @@ from .linalg.base_linalg import (
 from .tensor import *  # noqa: F401,F403
 from .tensor import __all__ as _tensor_all
 
-__all__ = [*_tensor_all, "Evolution", "computational_state",
+__all__ = [*_tensor_all, *_linalg_all, "Evolution", "computational_state",
            "device_operator", "eigensystem_partial", "expm_multiply",
            "groundenergy", "groundstate", "ham_heis", "heisenberg_energy",
            "neel_state"]

@@ -10,7 +10,8 @@ a tensor network crosses with its arrays read as numpy arrays and its
 crosses like an MPS, and a SimpleUpdate's gauge dict as its vectors; an
 arbitrary-geometry network crosses with its class and its site ids, and a 3D
 network (``TensorNetwork3D``, ``PEPS3D``) with its class, its lattice size
-and its tag and index ids.
+and its tag and index ids; a MERA with its
+tensors' ``left_inds`` and its ids.
 Tensors land on ``device``, the GPU unless the caller names another.
 """
 
@@ -118,6 +119,25 @@ def from_tpu_tngen(tn, device=None, dtype=None):
                inds=tuple(t.inds), tags=tuple(t.tags))
         for t in tn.tensor_map.values()], virtual=True)
     return new.view_as_(cls, **ids)
+
+
+def from_tpu_mera(mera, device=None, dtype=None):
+    """A quimb_tpu ``MERA`` -> the port's :class:`MERA` with the same
+    tensors (in the same order), index names, tags and ``left_inds``, and
+    its ``L``, ``site_tag_id`` and ``site_ind_id``."""
+    from .tensor.core import Tensor, TensorNetwork
+    from .tensor.tn1d.mera import MERA
+
+    device = resolve_device(device)
+    new = TensorNetwork([
+        Tensor(to_device(np.asarray(t.data), device=device, dtype=dtype),
+               inds=tuple(t.inds), tags=tuple(t.tags),
+               left_inds=t.left_inds)
+        for t in mera.tensor_map.values()], virtual=True)
+    new.__class__ = MERA
+    for ep in MERA._EXTRA_PROPS:
+        setattr(new, ep, getattr(mera, ep))
+    return new
 
 
 def from_tpu_tn3d(tn, device=None, dtype=None):

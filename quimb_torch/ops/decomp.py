@@ -667,19 +667,46 @@ def svd_via_eig_truncated(x, cutoff=-1.0, cutoff_mode=4, max_bond=-1,
     )
 
 
-def _rand_range_finder(x, k, q, seed=None):
+def _rand_range_finder(x, k, q, seed=None, gen=None):
     """Orthonormal Q (m, k) approximately spanning the top-k column space
-    of ``x``, with ``q`` power iterations; the sketch is drawn from a
-    generator of ``x``'s device (quimb_tpu draws from JAX's PRNG)."""
-    from ..gen.rand import randn
+    of ``x``, with ``q`` power iterations; the sketch is drawn from
+    ``gen``, else from a generator of ``x``'s device seeded ``seed``
+    (quimb_tpu draws from JAX's PRNG)."""
+    from ..gen.rand import _generator, _randn_from
 
-    G = randn((*x.shape[:-2], x.shape[-1], k), dtype=x.real.dtype,
-              seed=seed, device=x.device).to(x.dtype)
+    if gen is None:
+        gen = _generator(x.device, seed)
+    G = _randn_from(gen, (*x.shape[:-2], x.shape[-1], k), x.real.dtype, 1.0,
+                    0.0, "normal", x.device).to(x.dtype)
     Q, _ = safe_qr(x @ G)
     for _ in range(q):
         Z, _ = safe_qr(dag(x) @ Q)
         Q, _ = safe_qr(x @ Z)
     return Q
+
+
+def estimate_rank(x, eps=1e-10, k_start=16, k_max=None, q=2, seed=None):
+    """The numerical rank of ``x`` at relative singular-value threshold
+    ``eps``, by randomized range sketches that double in size until the
+    smallest captured singular value falls below ``eps * s_max``
+    (reference ``estimate_rank`` rand_linalg.py:302). Each sketch reads
+    its spectrum to the host."""
+    from ..gen.rand import _generator
+
+    gen = _generator(x.device, seed)
+    m, n = x.shape[-2:]
+    full = min(m, n)
+    k_max = full if k_max is None else k_max
+    k = min(k_start, full)
+    while True:
+        Q = _rand_range_finder(x, k, q, gen=gen)
+        s = torch.linalg.svdvals(dag(Q) @ x)
+        below = s < eps * s[0]
+        if bool(torch.any(below)):
+            return int(torch.argmax(below.to(torch.int8)))
+        if k >= k_max:
+            return int(full if k >= full else k)
+        k = min(2 * k, k_max, full)
 
 
 @register_split_driver("svd:rand", accepts=_FULL_SPLIT_OPTS | {"q", "p"})

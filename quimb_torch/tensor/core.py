@@ -952,7 +952,9 @@ class Tensor:
     split = tensor_split
 
     def distance(self, other, **contract_opts):
-        raise _deferred(16, "Tensor.distance (fitting.py)")
+        from .fitting import tensor_network_distance
+
+        return tensor_network_distance(self, other, **contract_opts)
 
     def gate(self, G, ind, preserve_inds=True, inplace=False):
         """Apply matrix ``G`` to index ``ind``, keeping index name."""
@@ -2072,9 +2074,14 @@ class TensorNetwork:
                 Rl, Rr, max_bond=max_bond, cutoff=cutoff,
             )
             if fit:
-                raise _deferred(
-                    16, "compress mode 'full-bond' with fit=True "
-                    "(experimental.cluster_update); pass fit=False")
+                from ..experimental.cluster_update import (
+                    fit_bondenv_projectors,
+                )
+
+                Pl, _, Pr = fit_bondenv_projectors(
+                    E4, max_bond=max_bond, cutoff=cutoff,
+                    max_iterations=max_iterations, tol=tol, Pl0=Pl, Pr0=Pr,
+                )
 
         ta.modify(data=ar.tensordot_axis(ta.data, Pl, ta.inds.index(bix), 0))
         tb.modify(data=ar.tensordot_axis(tb.data, Pr, tb.inds.index(bix), 1))
@@ -2087,7 +2094,26 @@ class TensorNetwork:
         """Compress the bond, then ALS/autodiff-fit the *local patch*
         around it back toward the uncompressed patch (reference
         ``_compress_between_local_fit`` tensor_core.py:6508)."""
-        raise _deferred(16, "compress mode 'local-fit' (fitting.py)")
+        from .networking import get_local_patch
+
+        patch = list(get_local_patch(self, [tid1, tid2],
+                                     max_distance=select_local_distance))
+        loc = TensorNetwork([], virtual=True)
+        for t in patch:
+            loc.add_tensor(self.tensor_map[t].copy(), tid=t, virtual=True)
+        target = loc.copy()
+        loc._compress_between_tids(tid1, tid2, max_bond=max_bond,
+                                   cutoff=cutoff)
+        if method == "autodiff":
+            from .fitting import tensor_network_fit_autodiff
+
+            tensor_network_fit_autodiff(loc, target, steps=steps, tol=tol,
+                                        inplace=True, **fit_opts)
+        else:
+            loc.fit_(target, steps=steps, tol=tol, **fit_opts)
+        for t in patch:
+            tl = loc.tensor_map[t]
+            self.tensor_map[t].modify(data=tl.data, inds=tl.inds)
 
     def compress_between(self, tags1, tags2, **opts):
         """Compress the bond between two tagged tensors; see
@@ -2283,14 +2309,25 @@ class TensorNetwork:
         (alternating least squares, optional solver='cg'), 'tree'
         (tree-gauge sweeps, no normal-matrix solve) or 'autodiff'
         (reference tensor_core.py:10147)."""
-        raise _deferred(16, "TensorNetwork.fit (fitting.py)")
+        from . import fitting
+
+        fn = {
+            "als": fitting.tensor_network_fit_als,
+            "tree": fitting.tensor_network_fit_tree,
+            "autodiff": fitting.tensor_network_fit_autodiff,
+        }[method]
+        return fn(self, tn_target, **kwargs)
 
     def distance(self, other, **kwargs):
-        raise _deferred(16, "TensorNetwork.distance (fitting.py)")
+        from .fitting import tensor_network_distance
+
+        return tensor_network_distance(self, other, **kwargs)
 
     def distance_normalized(self, other, **kwargs):
-        raise _deferred(16, "TensorNetwork.distance_normalized "
-                        "(fitting.py)")
+        from .fitting import tensor_network_distance
+
+        return tensor_network_distance(self, other, normalized=True,
+                                       **kwargs)
 
     def gate_inds(self, G, inds, contract=False, **kwargs):
         from .gating import tensor_network_gate_inds
@@ -2307,7 +2344,9 @@ class TensorNetwork:
     graph = draw
 
     def aslinearoperator(self, left_inds, right_inds, **kwargs):
-        raise _deferred(16, "TensorNetwork.aslinearoperator (linop.py)")
+        from .linop import TNLinearOperator
+
+        return TNLinearOperator(self, left_inds, right_inds, **kwargs)
 
     def __repr__(self):
         return (
@@ -4238,7 +4277,13 @@ def _tn_compress_all_1d(self, max_bond=None, cutoff=1e-10,
     """1D-chain sweep compression via the dedicated 1D machinery when
     site structure exists, else the tree scheme (reference
     ``compress_all_1d``)."""
-    raise _deferred(16, "TensorNetwork.compress_all_1d (tn1d/compress.py)")
+    if hasattr(self, "site_tags"):
+        from .tn1d.compress import tensor_network_1d_compress
+
+        return tensor_network_1d_compress(self, max_bond=max_bond,
+                                          cutoff=cutoff, **kwargs)
+    return _tn_compress_all_tree(self, max_bond=max_bond, cutoff=cutoff,
+                                 inplace=inplace, **kwargs)
 
 
 def _tn_contract_around_center(self, **kwargs):

@@ -34,13 +34,19 @@ from .builders import (
 from .compress import (
     enforce_1d_like,
     mps_gate_with_mpo,
+    mps_gate_with_mpo_bidm,
     mps_gate_with_mpo_direct,
     mps_gate_with_mpo_dm,
+    mps_gate_with_mpo_fit,
     mps_gate_with_mpo_lazy,
+    mps_gate_with_mpo_projector,
+    mps_gate_with_mpo_src,
+    mps_gate_with_mpo_src_oversample,
     mps_gate_with_mpo_zipup,
     mps_gate_with_mpo_zipup_oversample,
     tensor_network_1d_compress,
 )
+from .mera import MERA
 from .core import (
     Dense1D,
     MatrixProductOperator,
@@ -94,4 +100,10 @@ __all__ = [
     "mps_gate_with_mpo_lazy", "mps_gate_with_mpo_zipup",
     "mps_gate_with_mpo_zipup_oversample", "superop_TN_1D",
     "tensor_network_1d_compress",
+    "MERA",
+    "mps_gate_with_mpo_bidm",
+    "mps_gate_with_mpo_fit",
+    "mps_gate_with_mpo_projector",
+    "mps_gate_with_mpo_src",
+    "mps_gate_with_mpo_src_oversample",
 ]

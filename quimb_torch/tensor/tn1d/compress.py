@@ -1,33 +1,34 @@
-"""1D tensor network compression: the methods the MPS layer calls.
+"""1D tensor network compression: the MPO x MPS application family.
 
-Port of part of quimb_tpu's ``tensor/tn1d/compress.py`` (reference
+Port of quimb_tpu's ``tensor/tn1d/compress.py`` (reference
 ``quimb/tensor/tn1d/compress.py``: ``tensor_network_1d_compress`` :2815,
 direct :138, density-matrix :382, zip-up :667 and its oversampled form
-:910, ``mps_gate_with_mpo_*`` :2956-3215, ``enforce_1d_like`` :37): the
-methods ``direct``, ``dm``, ``zipup`` and ``zipup-oversample``, which
-``MatrixProductState.gate_with_mpo`` and ``CircuitMPSLazy`` use. The
-methods ``fit``, ``src``, ``src-oversample``, ``projector`` and ``bidm``
-raise, naming ROADMAP item 16.
+:910, fit :2240, src :1273, ``mps_gate_with_mpo_*`` :2956-3215,
+``enforce_1d_like`` :37; bidm from quimb's
+``experimental/tensor_1d_gate``): the methods ``direct``, ``dm``,
+``zipup``, ``zipup-oversample``, ``fit``, ``fit-zipup``, ``src``,
+``src-oversample``, ``projector`` and ``bidm``.
 
 Apart from ``direct`` (by definition it contracts each site column into
 one tensor, then canonizes and truncates), no method forms a site
 column's fat tensor: zip-up carries a (chi_new, chi, w) tensor down the
-chain, and dm eigendecomposes (chi_new d)-sized density matrices.
+chain, dm eigendecomposes (chi_new d)-sized density matrices, src
+sketches the left environments with a batch of random product states,
+fit sweeps single-layer <guess|target> environments, projector inserts
+oblique projectors from the 2x2 tensors around each bond, and bidm
+computes every bond's projectors from the uncompressed network's norm
+environments before contracting any column. src draws its sketches from
+a torch generator seeded by ``seed + site`` on the network's device
+(quimb_tpu draws them from JAX's PRNG, which torch cannot reproduce).
 """
 
 import collections
 
 import torch
 
+from ...ops import decomp
 from ...utils import check_opt
-from ..core import (
-    Tensor,
-    TensorNetwork,
-    _deferred,
-    bonds,
-    rand_uuid,
-    tensor_contract,
-)
+from ..core import Tensor, TensorNetwork, bonds, rand_uuid, tensor_contract
 from .core import MatrixProductState
 
 
@@ -248,20 +249,222 @@ def _compress_zipup_oversample_tn(tn, site_tags, site_inds, max_bond,
                               oversample=True, **kwargs)
 
 
+def _left_right_bonds(groups, i):
+    """The bonds between columns i-1 and i, and between i and i+1."""
+    lb, rb = [], []
+    if i > 0:
+        left = {ix for t in groups[i - 1] for ix in t.inds}
+        lb = [ix for t in groups[i] for ix in t.inds if ix in left]
+    if i < len(groups) - 1:
+        right = {ix for t in groups[i + 1] for ix in t.inds}
+        rb = [ix for t in groups[i] for ix in t.inds if ix in right]
+    return tuple(dict.fromkeys(lb)), tuple(dict.fromkeys(rb))
+
+
+def _compress_src_tn(tn, site_tags, site_inds, max_bond, cutoff=0.0,
+                     seed=None, noise_dist="normal", **kwargs):
+    """Successive randomized compression (arXiv:2504.06475): sketch the
+    left environments with ``max_bond`` random product states sharing
+    one batch index, then sweep right to left forming isometries by
+    skinny QRs. The largest intermediate is O(B chi w)."""
+    from ...gen.rand import randn
+
+    L = len(site_tags)
+    groups = _site_groups(tn, site_tags)
+    if L == 1:
+        return [tensor_contract(*groups[0], preserve_tensor=True,
+                                drop_tags=True)]
+    t0 = groups[0][0]
+    B, bix = max_bond, rand_uuid()
+    ws = [Tensor(randn((B, *(tn.ind_size(ix) for ix in site_inds[i])),
+                       dtype=t0.dtype, dist=noise_dist,
+                       seed=None if seed is None else seed + i,
+                       device=t0.data.device),
+                 inds=(bix, *site_inds[i])) for i in range(L)]
+    # the left sketched environments; the batch index is a hyper index,
+    # so the outputs are given
+    LEs = [None] * L
+    le = None
+    for i in range(L - 1):
+        le = tensor_contract(*((le,) if le is not None else ()), *groups[i],
+                             ws[i], preserve_tensor=True, drop_tags=True,
+                             output_inds=(bix,
+                                          *_left_right_bonds(groups, i)[1]))
+        LEs[i + 1] = le
+
+    new = [None] * L
+    re = None
+    for i in range(L - 1, 0, -1):
+        t = tensor_contract(LEs[i], *groups[i],
+                            *((re,) if re is not None else ()),
+                            preserve_tensor=True, drop_tags=True)
+        Q, _ = t.split(left_inds=[ix for ix in t.inds if ix != bix],
+                       right_inds=(bix,), method="qr", cutoff=-1.0,
+                       get="tensors")
+        new[i] = Q
+        re = tensor_contract(*groups[i], Q.conj(),
+                             *((re,) if re is not None else ()),
+                             preserve_tensor=True, drop_tags=True)
+    new[0] = tensor_contract(*groups[0], re, preserve_tensor=True,
+                             drop_tags=True)
+    if cutoff and cutoff > 0:
+        new = _canonize_and_truncate(new, max_bond, cutoff)
+    return new
+
+
+def _compress_src_oversample_tn(tn, site_tags, site_inds, max_bond, cutoff,
+                                max_bond_oversample=None, **kwargs):
+    """src at a larger sketch (by default ``max(max_bond + 8,
+    2 max_bond)``), then a canonical truncation to ``max_bond``."""
+    if max_bond_oversample is None and max_bond is not None:
+        max_bond_oversample = max(max_bond + 8, 2 * max_bond)
+    ts = _compress_src_tn(tn, site_tags, site_inds, max_bond_oversample,
+                          **kwargs)
+    return _canonize_and_truncate(ts, max_bond, cutoff)
+
+
+def _compress_fit_tn(tn, site_tags, site_inds, max_bond, cutoff,
+                     max_iterations=2, guess="zipup", **kwargs):
+    """One-site ALS fitting against the uncontracted target network, from
+    a zip-up (or direct) guess; the environments are single-layer
+    <guess|target> objects of size O(chi_new chi w)."""
+    L = len(site_tags)
+    groups = _site_groups(tn, site_tags)
+    guess_fn = _compress_zipup_tn if guess == "zipup" else _compress_direct_tn
+    ts = guess_fn(tn, site_tags, site_inds, max_bond, cutoff)
+
+    for _ in range(max_iterations):
+        envs = [None] * (L + 1)
+        for i in range(L - 1, 0, -1):
+            envs[i] = tensor_contract(
+                ts[i].conj(), *groups[i],
+                *((envs[i + 1],) if envs[i + 1] is not None else ()),
+                preserve_tensor=True, drop_tags=True)
+        lenv = None
+        for i in range(L):
+            B = tensor_contract(
+                *groups[i], *((lenv,) if lenv is not None else ()),
+                *((envs[i + 1],) if i < L - 1 else ()),
+                preserve_tensor=True, drop_tags=True,
+                output_inds=tuple(ts[i].inds))
+            if i < L - 1:
+                # orthogonalize the site, keeping the name of its bond to
+                # site i+1 (whose tensor is recomputed from environments,
+                # so R is dropped)
+                (shared,) = bonds(ts[i], ts[i + 1])
+                Q, _ = B.split(left_inds=None, right_inds=(shared,),
+                               method="qr", cutoff=-1.0, get="tensors")
+                newbix = next(ix for ix in Q.inds
+                              if ix not in set(B.inds) - {shared})
+                Q.reindex_({newbix: shared})
+                ts[i] = Q
+            else:
+                ts[i] = B
+            lenv = tensor_contract(ts[i].conj(), *groups[i],
+                                   *((lenv,) if lenv is not None else ()),
+                                   preserve_tensor=True, drop_tags=True)
+    return ts
+
+
+def _compress_projector_tn(tn, site_tags, site_inds, max_bond, cutoff,
+                           canonize=True, **kwargs):
+    """Local oblique projectors, as in CTMRG / HOTRG (reference
+    ``mps_gate_with_mpo_projector`` tn1d/compress.py:3215): a compressor
+    between each pair of neighbouring columns from the 2x2 tensors
+    around the bond, then each column contracted and a canonical
+    resweep."""
+    tn = tn.copy()
+    if canonize:
+        tn.gauge_all_simple_(max_iterations=6, tol=1e-9)
+        # the simple gauge strips the overall scale into the exponent
+        tn.distribute_exponent()
+    tn_calc = tn.copy()
+    L = len(site_tags)
+    for i in range(L - 1):
+        tn_calc.insert_compressor_between_regions_(
+            (site_tags[i],), (site_tags[i + 1],),
+            new_ltags=(site_tags[i],), new_rtags=(site_tags[i + 1],),
+            max_bond=max_bond, cutoff=cutoff, insert_into=tn)
+    ts = [tensor_contract(*tn.select_tensors(tag, "any"),
+                          preserve_tensor=True, drop_tags=True)
+          for tag in site_tags]
+    return _canonize_and_truncate(ts, max_bond, cutoff)
+
+
+def _compress_bidm_tn(tn, site_tags, site_inds, max_bond, cutoff, **kwargs):
+    """Bi-directional density-matrix compression: left and right norm
+    environments of the uncompressed network are reduced to factors at
+    every bond, the oblique projectors of all bonds come from those
+    pairs, and only then are the columns contracted."""
+    tnc = tn.copy()
+    groups = _site_groups(tnc, site_tags)
+    L = len(groups)
+    outer = set(tnc.outer_inds())
+    bmap = {ix: rand_uuid() for ix in tnc.ind_map if ix not in outer}
+    bra = tnc.conj()
+    bra.reindex_(bmap)
+    bra_groups = _site_groups(bra, site_tags)
+    bond_bix = [_left_right_bonds(groups, i)[1] for i in range(L - 1)]
+
+    def reduced(i, kb, env, right):
+        env = tensor_contract(*((env,) if env is not None else ()),
+                              *(t.copy() for t in groups[i]),
+                              *(t.copy() for t in bra_groups[i]),
+                              preserve_tensor=True, drop_tags=True)
+        bb = tuple(bmap[ix] for ix in kb)
+        XX = env.to_dense(bb, kb) if right else env.to_dense(kb, bb)
+        return env, decomp.squared_op_to_reduced_factor(XX, right=right)
+
+    Rl, Rr = {}, {}
+    env = None
+    for i in range(L - 1):
+        env, Rl[i] = reduced(i, bond_bix[i], env, True)
+    env = None
+    for i in range(L - 1, 0, -1):
+        env, Rr[i - 1] = reduced(i, bond_bix[i - 1], env, False)
+
+    for i in range(L - 1):
+        kb = bond_bix[i]
+        sizes = tuple(tnc.ind_size(ix) for ix in kb)
+        Pl, Pr = decomp.compute_oblique_projectors(Rl[i], Rr[i],
+                                                   max_bond=max_bond,
+                                                   cutoff=cutoff)
+        k = Pl.shape[-1]
+        new_b = rand_uuid()
+        lix = [rand_uuid() for _ in kb]
+        rix = [rand_uuid() for _ in kb]
+        for ix, nl, nr in zip(kb, lix, rix):
+            for t in groups[i]:
+                if ix in t.inds:
+                    t.reindex_({ix: nl})
+            for t in groups[i + 1]:
+                if ix in t.inds:
+                    t.reindex_({ix: nr})
+        tnc.add_tensor(Tensor(Pl.reshape(*sizes, k), inds=(*lix, new_b),
+                              tags=(site_tags[i],)))
+        tnc.add_tensor(Tensor(Pr.reshape(k, *sizes), inds=(new_b, *rix),
+                              tags=(site_tags[i + 1],)))
+    return [tensor_contract(*tnc.select_tensors(tag, "any"),
+                            preserve_tensor=True, drop_tags=True)
+            for tag in site_tags]
+
+
 _COMPRESS_METHODS = {
     "direct": _compress_direct_tn,
     "dm": _compress_dm_tn,
     "zipup": _compress_zipup_tn,
     "zipup-oversample": _compress_zipup_oversample_tn,
+    "fit": _compress_fit_tn,
+    "fit-zipup": _compress_fit_tn,
+    "src": _compress_src_tn,
+    "src-oversample": _compress_src_oversample_tn,
+    "projector": _compress_projector_tn,
+    "bidm": _compress_bidm_tn,
 }
-_DEFERRED_METHODS = ("fit", "src", "src-oversample", "projector", "bidm")
 
 
 def _compress_method(method):
-    check_opt("method", method, (*_COMPRESS_METHODS, *_DEFERRED_METHODS))
-    if method in _DEFERRED_METHODS:
-        raise _deferred(16, f"1D compression method {method!r} "
-                            f"(tn1d/compress.py)")
+    check_opt("method", method, tuple(_COMPRESS_METHODS))
     return _COMPRESS_METHODS[method]
 
 
@@ -350,19 +553,28 @@ def _apply_via(method):
 mps_gate_with_mpo_dm = _apply_via("dm")
 mps_gate_with_mpo_zipup = _apply_via("zipup")
 mps_gate_with_mpo_zipup_oversample = _apply_via("zipup-oversample")
+mps_gate_with_mpo_fit = _apply_via("fit")
+mps_gate_with_mpo_src = _apply_via("src")
+mps_gate_with_mpo_src_oversample = _apply_via("src-oversample")
+mps_gate_with_mpo_projector = _apply_via("projector")
+mps_gate_with_mpo_bidm = _apply_via("bidm")
 
 _APPLY_METHODS = {
     "direct": mps_gate_with_mpo_direct,
     "dm": mps_gate_with_mpo_dm,
     "zipup": mps_gate_with_mpo_zipup,
     "zipup-oversample": mps_gate_with_mpo_zipup_oversample,
+    "fit": mps_gate_with_mpo_fit,
+    "src": mps_gate_with_mpo_src,
+    "src-oversample": mps_gate_with_mpo_src_oversample,
+    "projector": mps_gate_with_mpo_projector,
+    "bidm": mps_gate_with_mpo_bidm,
 }
 
 
 def mps_gate_with_mpo(mps, mpo, max_bond=None, cutoff=1e-10, method="dm",
                       **kwargs):
     """Apply an MPO to an MPS with compression, by ``method``."""
-    if method not in _APPLY_METHODS:
-        _compress_method(method)
+    check_opt("method", method, tuple(_APPLY_METHODS))
     return _APPLY_METHODS[method](mps, mpo, max_bond=max_bond,
                                   cutoff=cutoff, **kwargs)

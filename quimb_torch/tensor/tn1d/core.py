@@ -754,8 +754,17 @@ class MatrixProductState(TensorNetwork1DVector, TensorNetwork1DFlat):
         return float(S[0] - S[1])
 
     def partial_trace_linop(self, keep, upper_ind_id="b{}"):
-        raise _deferred(16, "MatrixProductState.partial_trace_linop "
-                            "(linop.py)")
+        """The reduced density matrix of sites ``keep`` as a lazy
+        :class:`TNLinearOperator` (for SLQ estimates of its spectrum)."""
+        from ..linop import TNLinearOperator
+
+        bra = self.H
+        bra.mangle_inner_("*")
+        kix = [self.site_ind(i) for i in keep]
+        bix = [upper_ind_id.format(i) for i in keep]
+        bra.reindex_({self.site_ind(i): upper_ind_id.format(i)
+                      for i in keep})
+        return TNLinearOperator(self & bra, tuple(bix), tuple(kix))
 
     def partial_trace(self, keep, upper_ind_id="b{}", rescale_sites=True):
         """Reduced density matrix of sites ``keep``, dense."""
@@ -1314,9 +1323,14 @@ class SuperOperator1D(TensorNetwork1D):
 
 def TNLinearOperator1D(tn, left_inds, right_inds, start=None, stop=None,
                        **kwargs):
-    """A 1D network section as a linear operator (reference
-    ``TNLinearOperator1D`` tn1d/core.py:4756)."""
-    raise _deferred(16, "TNLinearOperator1D (linop.py)")
+    """A 1D network section (sites ``start`` to ``stop``) as a
+    :class:`TNLinearOperator` (reference ``TNLinearOperator1D``
+    tn1d/core.py:4756)."""
+    from ..linop import TNLinearOperator
+
+    if start is not None and stop is not None and hasattr(tn, "site_tag"):
+        tn = tn.select_any(tuple(tn.site_tag(i) for i in range(start, stop)))
+    return TNLinearOperator(tn, left_inds, right_inds, **kwargs)
 
 
 def superop_TN_1D(tn_super, tn_op, upper_ind_id="k{}",

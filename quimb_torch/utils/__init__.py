@@ -277,3 +277,39 @@ def valmap(fn, d):
 
 # --------------------------------------------------------------------------
 # generic tree mapping (reference utils.py:617-890)
+
+
+# --------------------------------------------------------------------------
+# progress bars (tqdm where it is installed)
+# --------------------------------------------------------------------------
+
+try:
+    from tqdm import tqdm as _tqdm
+
+    def progbar(it=None, ascii=True, **kwargs):
+        return _tqdm(it, ascii=ascii, **kwargs)
+
+except ImportError:  # pragma: no cover
+
+    class progbar:
+        """A stand-in with tqdm's methods, where tqdm is not installed."""
+
+        def __init__(self, it=None, total=None, desc=None, **_):
+            self._it = it
+            self.total = total
+            self.n = 0
+            self.desc = desc
+
+        def __iter__(self):
+            for x in self._it:
+                yield x
+                self.n += 1
+
+        def update(self, n=1):
+            self.n += n
+
+        def set_description(self, desc, refresh=True):
+            self.desc = desc
+
+        def close(self):
+            pass

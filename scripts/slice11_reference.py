@@ -16,8 +16,9 @@ Three parts, each written under its name into
   by ``contract_boundary`` (mode ``"mps"`` and ``"full-bond"``) and
   ``contract_ctmrg``, and at max_bond 16 by ``contract_hotrg``.
 - ``full_update``: FullUpdate (ALS) of ``ham_2d_heis(L, L)`` at D=3,
-  chi=32 from ``start_arrays(L, 3)`` (``default_rng(42)``), 2 steps at
-  tau=0.3 then 2 at 0.1, and SimpleUpdate on the same schedule from the
+  chi=32 from ``start_arrays(L, 3)`` (``default_rng(42)``), 1 step at
+  tau=0.3 then 1 at 0.1 (2 + 2 until phases 24-25 were added), and
+  SimpleUpdate on the same schedule from the
   same start; both energies by ``compute_energy()``.
 
 JAX runs on the CPU in float64, quimb_tpu's boundary contractions on host
@@ -52,7 +53,7 @@ PEPS_L, PEPS_D, PEPS_CHI, PEPS_NITS = 16, 3, 32, 30
 # HOTRG's second merges hold tensors of chi**6 entries (8 GB at chi=32,
 # more than an 80 GB card holds for a row of them): it runs at 16
 HOTRG_CHI = 16
-FU_D, FU_CHI, FU_SCHEDULE = 3, 32, ((2, 0.3), (2, 0.1))
+FU_D, FU_CHI, FU_SCHEDULE = 3, 32, ((1, 0.3), (1, 0.1))
 PARTS = ("ring_tebd", "peps16_norms", "full_update")
 NORMS = ("mps", "full_bond", "ctmrg", "hotrg")
 

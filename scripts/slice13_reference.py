@@ -13,8 +13,8 @@ Five parts, each written under its name into
   norms of ``gauge_all_belief_propagation()`` of the L=6 network.
 - ``peps3d``: a 4 x 4 x 4 ``PEPS3D`` at D=3 from ``PEPS3D.from_fill_fn``
   with standard normal arrays from ``np.random.default_rng(42)``, evolved
-  by ``SimpleUpdate3D`` with ``ham_3d_heis(4, 4, 4)`` for five steps at
-  each of tau = 0.3, 0.1, 0.03; the 144 gauge vectors (keyed by their two
+  by ``SimpleUpdate3D`` with ``ham_3d_heis(4, 4, 4)`` for two steps at
+  each of tau = 0.3, 0.1, 0.03 (five until phases 24-25 were added); the 144 gauge vectors (keyed by their two
   sites), and the BP energy of ``get_state()``: ``D2BP`` run to its
   default tolerance, then ``local_expectation`` of the Heisenberg term on
   each bond, summed.
@@ -33,8 +33,8 @@ Five parts, each written under its name into
   (``HTN_random_ksat(3, 1000, alpha=3.0, seed=7)``) by ``contract_hv1bp``:
   each estimate's log10, its iterations and seconds.
 - ``kagome``: phase 21(a)'s protocol (``scripts/slice12_reference.py``'s
-  ``kagome``) with the cluster energy's simple gauging capped at 20
-  iterations: ``gauge_all_simple(max_iterations=20)``, then
+  ``kagome``) at two steps a tau (five until phases 24-25 were added) with
+  the cluster energy's simple gauging capped at 20 iterations: ``gauge_all_simple(max_iterations=20)``, then
   ``compute_local_expectation(method="cluster", gauges=...)``.
 
 JAX runs on the CPU in float64, quimb_tpu's contractions on host arrays
@@ -69,12 +69,12 @@ BETA_C = 0.2216544
 ISING_EXACT_L = 3
 ISING_RUNS = (("ctmrg", 8, 16), ("boundary", 6, 12), ("hotrg", 6, 8))
 ISING_GAUGE_L = 6
-P3D_L, P3D_D, P3D_NITS, P3D_TAUS, P3D_SEED = 4, 3, 5, (0.3, 0.1, 0.03), 42
+P3D_L, P3D_D, P3D_NITS, P3D_TAUS, P3D_SEED = 4, 3, 2, (0.3, 0.1, 0.03), 42
 PEPS_L, PEPS_D, PEPS_NITS = 16, 3, 30
 BP_MAX_BOND = 2
 HYPER_H, HYPER_L, HYPER_L_D1 = 0.1, 8, 4
 KSAT = dict(k=3, num_variables=1000, alpha=3.0, seed=7)
-KAGOME_L, KAGOME_D, KAGOME_NITS, KAGOME_TAUS = 6, 4, 5, (0.3, 0.1, 0.03)
+KAGOME_L, KAGOME_D, KAGOME_NITS, KAGOME_TAUS = 6, 4, 2, (0.3, 0.1, 0.03)
 KAGOME_GAUGE_ITERATIONS = 20
 PARTS = ("ising3d", "peps3d", "peps16_bp", "hyper", "kagome")
 

@@ -910,3 +910,68 @@ def test_hv1bp_iteration_on_card_matches_cpu(cuda):
                                atol=1e-14)
     assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-14
     assert out["cuda"][2] == pytest.approx(out["cpu"][2], rel=1e-12)
+
+
+def _rq_loss(H):
+    def loss(psi):
+        bra = psi.H.reindex({psi.site_ind(i): H.lower_ind(i)
+                             for i in range(psi.L)})
+        num = (bra & H & psi).contract(..., optimize="auto")
+        return (num / (psi.H @ psi)).real
+    return loss
+
+
+@pytest.mark.parametrize("optimizer", ["L-BFGS-B", "adam"])
+def test_tnoptimizer_on_card_matches_cpu(cuda, optimizer):
+    """TNOptimizer with complex parameters on the card: the gradients stay
+    there (only scipy's vector crosses to the host), and the losses follow
+    the CPU run's (1e-10 relative)."""
+    out = {}
+    for dev in ("cpu", cuda):
+        psi = quimb_torch.MPS_rand_state(8, 4, seed=3, dtype="complex128",
+                                         device="cpu")
+        psi.apply_to_arrays(lambda x: x.to(dev))
+        H = quimb_torch.MPO_ham_heis(8, device=dev)
+        opt = quimb_torch.TNOptimizer(psi, _rq_loss(H), optimizer=optimizer,
+                                      progbar=False)
+        val, grads = opt._value_and_grad(opt.params)
+        assert val.device.type == torch.device(dev).type
+        assert all(g.device.type == torch.device(dev).type
+                   for g in grads.values())
+        tn = opt.optimize(4)
+        assert all(p.device.type == torch.device(dev).type
+                   for p in opt.params.values())
+        assert all(t.data.device.type == torch.device(dev).type for t in tn)
+        out[str(dev)] = np.array(opt.losses)
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-10)
+
+
+def test_linear_operator_and_slq_on_card_match_cpu(cuda):
+    """A CUDA TNLinearOperator's products and dense form give the CPU's
+    (1e-10); the SLQ estimate with the same probes within 1e-5 (its 16 x 16
+    operator fills its Krylov space at K = n = 16, where the recurrence
+    without reorthogonalization amplifies round-off: the card read 2.1e-7
+    from the CPU, where complex128 CPU runs of two packages read 1.5e-8);
+    the ALS fit's distance to its target within 1e-10, as the CPU tests
+    hold it to quimb_tpu's (its solves are conditioned by the normal
+    matrices)."""
+    out = {}
+    for dev in ("cpu", cuda):
+        psi = quimb_torch.MPS_rand_state(8, 4, seed=5, device="cpu")
+        target = quimb_torch.MPS_rand_state(8, 6, seed=6, device="cpu")
+        for tn in (psi, target):
+            tn.apply_to_arrays(lambda x: x.to(dev))
+        A = psi.partial_trace_linop((2, 3, 4, 5))
+        X = torch.ones(16, 3, dtype=torch.float64, device=dev)
+        mm = A.matmat(X)
+        assert mm.device.type == torch.device(dev).type
+        est = quimb_torch.tensor_network_approx_spectral_function(
+            A, quimb_torch.linalg.approx_spectral._np_xlogx, pos=True,
+            seed=3, R=16)
+        fit = psi.fit(target, steps=2)
+        out[str(dev)] = (mm.cpu().numpy(), A.to_dense().cpu().numpy(), est,
+                         fit.distance(target))
+    for a, b in zip(out["cuda"][:2], out["cpu"][:2]):
+        np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-12)
+    assert out["cuda"][2] == pytest.approx(out["cpu"][2], rel=1e-5)
+    assert abs(out["cuda"][3] - out["cpu"][3]) <= 1e-10

@@ -52,7 +52,41 @@ def test_import_never_imports_jax():
         "import quimb_torch.tensor.belief_propagation\n"
         "from quimb_torch.tensor.belief_propagation import (\n"
         "    bp_common, d1bp, d2bp, hv1bp, mps1bp, extras, gbp)\n"
+        "import quimb_torch.tensor.interface, quimb_torch.tensor.optimize\n"
+        "import quimb_torch.tensor.fitting, quimb_torch.tensor.linop\n"
+        "import quimb_torch.tensor.tensor_approx_spectral\n"
+        "import quimb_torch.tensor.tn1d.mera, quimb_torch.tensor.tn1d.compress\n"
+        "import quimb_torch.experimental\n"
+        "import quimb_torch.experimental.cluster_update\n"
+        "import quimb_torch.linalg.approx_spectral\n"
+        "import quimb_torch.linalg.rand_linalg\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert 'optax' not in sys.modules, 'optax imported'\n"
+        "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
+    )
+    assert res.returncode == 0, res.stderr
+
+
+def test_optimisation_and_fitting_never_import_jax_or_optax_when_used():
+    """Every first-order rule, an L-BFGS-B step, an ALS fit, a MERA, a
+    linear operator's SLQ estimate and a randomized SVD load neither jax,
+    optax nor quimb_tpu."""
+    res = _run(
+        "import sys, torch\n"
+        "import quimb_torch as qt\n"
+        "from quimb_torch.tensor import optimize\n"
+        "psi = qt.MPS_rand_state(4, 2, device='cpu')\n"
+        "loss = lambda p: (p.H @ p).real\n"
+        "for name in sorted(optimize._OPTAX_METHODS) + ['L-BFGS-B']:\n"
+        "    qt.TNOptimizer(psi, loss, optimizer=name, progbar=False)"
+        ".optimize(1)\n"
+        "psi.fit(qt.MPS_rand_state(4, 2, device='cpu'), steps=1)\n"
+        "qt.MERA.rand(4, seed=1, device='cpu').isometrize()\n"
+        "A = psi.partial_trace_linop((1, 2))\n"
+        "qt.tensor_network_approx_spectral_function(A, qt.xlogx, R=8)\n"
+        "qt.rsvd(torch.rand(6, 5, dtype=torch.float64), 2)\n"
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert 'optax' not in sys.modules, 'optax imported'\n"
         "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
     )
     assert res.returncode == 0, res.stderr

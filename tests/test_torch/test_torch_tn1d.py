@@ -418,10 +418,19 @@ def test_dense1d_align_superop():
         _n(got.contract(..., output_inds=sorted(got.outer_inds()))),
         _n(want.contract(..., output_inds=sorted(want.outer_inds()))),
         atol=1e-12)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tc.TNLinearOperator1D(t, ("k0",), ("b0",))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        t.partial_trace_linop((0,))
+    # once deferred to ROADMAP item 16: the linear operators, against
+    # quimb_tpu's (1e-12)
+    rho_t, rho_j = t.partial_trace_linop((0, 2)), j.partial_trace_linop((0, 2))
+    assert np.allclose(_n(rho_t.to_dense()), _n(rho_j.to_dense()),
+                       atol=1e-12)
+    assert np.allclose(_n(rho_t.to_dense()), _n(t.partial_trace((0, 2))),
+                       atol=1e-12)
+    jH, tH = _mpo_pair(5)
+    opt = tc.TNLinearOperator1D(tH, [tH.upper_ind(i) for i in range(5)],
+                                [tH.lower_ind(i) for i in range(5)])
+    opj = jc.TNLinearOperator1D(jH, [jH.upper_ind(i) for i in range(5)],
+                                [jH.lower_ind(i) for i in range(5)])
+    assert np.allclose(_n(opt.to_dense()), _n(opj.to_dense()), atol=1e-12)
 
 
 def test_environments_flatten_swap():
@@ -510,8 +519,10 @@ def test_gate_with_mpo_methods(method, max_bond):
     else:
         want = _gate_with_mpo_reference(method, max_bond)
     assert _phase_close(_dense_state(out), want, 1e-9)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        t.gate_with_mpo(tH, max_bond=5, method="fit")
+    # once deferred to ROADMAP item 16: the fit method, as quimb_tpu's
+    fit = t.gate_with_mpo(tH, max_bond=5, cutoff=0.0, method="fit")
+    assert _phase_close(_dense_state(fit),
+                        _gate_with_mpo_reference("fit", 5), 1e-9)
 
 
 def test_tensor_network_1d_compress_direct():
