@@ -17,7 +17,9 @@ in the hand-written FP64 tensor-core (DMMA) kernel, then DMRG1 from that
 state. Then the MPS / MPO object layer on that state, the TEBD quench,
 the exact 20-qubit core, the 53-qubit circuit as a lazy network and as
 an MPS, the 16x16 PEPS, the rings, JacobiDMRG, the arbitrary-geometry
-layer, the 3D layer and belief propagation. Its phases, each fatal on
+layer, the 3D layer, belief propagation, optimisation and the spectral
+estimates, and the matrix half: sector exact diagonalisation, calc,
+Evolution's RK45 and CircuitDense at 28 qubits. Its phases, each fatal on
 failure:
 
 1. the device: a CUDA GPU is required; its name and power limit are
@@ -195,7 +197,7 @@ failure:
    half-sweep;
 21. the arbitrary-geometry layer: (a) ``SimpleUpdateGen`` of the kagome
    Heisenberg antiferromagnet (``edges_2d_kagome(6, 6)``, 108 sites, D=4,
-   float64, start arrays from ``default_rng(42)``, two steps at each of
+   float64, start arrays from ``default_rng(42)``, one step at each of
    tau = 0.3, 0.1, 0.03) through entry points with no device, its energy
    per site by ``compute_local_expectation(method="cluster")`` on gauges
    from ``gauge_all_simple(max_iterations=20)`` within 1e-6 relative of
@@ -253,8 +255,8 @@ failure:
    chi=64, and each bond at most 256; seconds and peak allocation;
    (b) ``TNOptimizer`` on an L=128, chi=256 float64 MPS from
    ``default_rng(42)`` (normalised site by site), the Rayleigh quotient of
-   the Heisenberg MPO contracted site by site (chi^3): 10 L-BFGS-B
-   iterations, then 10 Adam steps, each loss within 1e-8 relative of
+   the Heisenberg MPO contracted site by site (chi^3): 3 L-BFGS-B
+   iterations, then 3 Adam steps, each loss within 1e-8 relative of
    quimb_tpu's sequence from the same arrays, L-BFGS-B's falling, the
    parameters on the card throughout; seconds an evaluation and the host
    bytes of scipy's vector; (c) ``ClusterUpdateGen`` (cluster distance
@@ -272,7 +274,37 @@ failure:
    exact value from ``eigvalsh`` of the dense 1024 x 1024 rho
    (``to_dense`` on the card); ``rsvd(rho, 16, p=8)`` against
    ``torch.linalg.svdvals`` within ten times quimb_tpu's own distance on
-   the rehearsal's matrix. No phase from 17 on launches a sandwich kernel.
+   the rehearsal's matrix;
+26. (after phase 27) exact diagonalisation in a symmetry sector: the
+   Heisenberg antiferromagnet (``heisenberg_from_edges``) on the 4 x 4 and
+   4 x 6 tori in the U1 sector of half filling, as the matrix-free
+   ``CoupledHam`` (``build_coupled_ham``): at 4 x 4 (D=12,870) the
+   ``groundenergy`` within 1e-10 relative of the exact
+   -11.228483208428864 and the matvec within 1e-12 of the ELL
+   ``build_sparse_ham()`` on the card; at 4 x 6 (D=2,704,156) the
+   ``groundenergy`` within 1e-10 relative of quimb_tpu's (its sector
+   matrix and scipy's eigsh, ``scripts/slice15_reference.py``) and the
+   ``groundstate``'s Ritz residual at most 1e-6; D, the terms per arity,
+   the matvecs to convergence, one matvec's time (median of 5 CUDA-event
+   timings), its launches (``torch.profiler``), its bound (24 B x D over
+   the card's bandwidth) and share, a Lanczos restart's busy share and
+   the peak allocation;
+27. (after phase 11) the dense matrix half on phase 11's N=20 ground state
+   (by Lanczos to machine precision): ``entropy_subsys``,
+   ``mutinf_subsys``, ``logneg_subsys`` (a 4096 x 4096 rho_AB),
+   ``schmidt_gap``, ``concurrence`` and ``pauli_correlations``, each within
+   1e-10 absolute of quimb_tpu's; ``Evolution(method="integrate")`` over
+   phase 11's protocol, <Z_0> within 1e-10 of quimb_tpu's RK45 and within
+   1e-8 of REFBASE and phase 11's expm path, with its steps and host
+   reads; an N=10 density operator under the Lindblad equation (dephasing
+   on every site, gamma = 0.1, to t = 1) and by ``method="solve"``, <Z_i>,
+   purity and the diagonal within 1e-8 relative of quimb_tpu's;
+28. ``CircuitDense`` at 28 qubits in complex128 (4.3 GB): the gates of
+   ``circ_ansatz_1D_brickwork(28, 8, seed=7)`` applied eagerly, the norm
+   within 1e-12 of 1, the amplitudes of ``sample(4, seed=42)``'s strings
+   and <ZZ> on qubits 13, 14 within 1e-10 of the lazy ``Circuit``'s; the
+   seconds a gate, the draw's seconds and the peak allocation. No phase
+   from 17 on launches a sandwich kernel.
 
 The line before the last is the kernels' JSON summary, one entry per
 kernel with its launches on its paths (DMRG2 and ParallelDMRG for
@@ -284,8 +316,9 @@ circuit, the MPS layer and the PEPS: quimb_tpu's have no Pallas kernel,
 and their products run as batched ``matmul``, QR and SVD on the card;
 nor do complex DMRG, the rings, HOTRG, CTMRG, FullUpdate, JacobiDMRG,
 the arbitrary-geometry layer, the 3D layer, belief propagation, the
-optimizer, the fits, the cluster update and the spectral estimates
-(quimb_tpu runs them on its einsum, QR, SVD, Cholesky and eigh; HV1BP's
+optimizer, the fits, the cluster update, the spectral estimates, the
+sector operator, calc, Evolution's RK45 and CircuitDense (quimb_tpu runs
+them on its einsum, gathers, QR, SVD, Cholesky and eigh; HV1BP's
 batched updates are ``torch.einsum`` over stacked tensors, as quimb_tpu's
 are ``jax.vmap`` of einsums). The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1494,6 +1527,7 @@ def run_exact_path():
         print(f"  {us / 1e3:.3f} ms  {name[:100]}", flush=True)
     del warm, evo
     torch.cuda.empty_cache()
+    return zs
 
 
 # -- phase 13: the 53-qubit circuit -------------------------------------------
@@ -2840,13 +2874,14 @@ def run_jacobi(dmrg2):
 # ``python scripts/slice12_reference.py`` on a CPU (see its docstring)
 SLICE12_REF = "scripts/slice12_reference.json"
 # the kagome Heisenberg antiferromagnet: the open 6 x 6 lattice (108
-# sites), D=4, two imaginary-time steps at each tau (ten until the 3D and
-# BP phases were added, five until phases 24-25 were); the cluster energy's simple gauging capped at 20
+# sites), D=4, one imaginary-time step at each tau (ten until the 3D and
+# BP phases were added, five until phases 24-25 were, two until phases
+# 26-28 were); the cluster energy's simple gauging capped at 20
 # iterations (at 100 it ran to its cap without reaching its tolerance,
 # 45-55 s on the card); the bound on the energy per site relative to
 # quimb_tpu's of the same protocol from the same start arrays
 # (scripts/slice13_reference.py, part "kagome")
-KAGOME_L, KAGOME_D, KAGOME_NITS, KAGOME_TAUS = 6, 4, 2, (0.3, 0.1, 0.03)
+KAGOME_L, KAGOME_D, KAGOME_NITS, KAGOME_TAUS = 6, 4, 1, (0.3, 0.1, 0.03)
 KAGOME_GAUGE_ITERATIONS = 20
 KAGOME_E_TOL, KAGOME_THREADS = 1e-6, 4
 # <Z_q> of phase 16's 4x4 circuit by CircuitPEPOSimpleUpdate, against the
@@ -3525,11 +3560,11 @@ COMPRESS_1D_CUTOFF = 1e-10
 COMPRESS_1D_SEED = 7
 # 24(b): the start state, the iterations, and the bound on each loss
 # relative to quimb_tpu's (the port's CPU run reads 1e-15 from it at L=8)
-OPT_SEED, OPT_LBFGS_ITS, OPT_ADAM_STEPS, OPT_ADAM_LR = 42, 10, 10, 0.01
+OPT_SEED, OPT_LBFGS_ITS, OPT_ADAM_STEPS, OPT_ADAM_LR = 42, 3, 3, 0.01
 OPT_REL_TOL = 1e-8
-# 24(c): tau, the steps' time budget (with the energy's 15-20 s, the
-# sub-phase near 40 s) and the most steps quimb_tpu ran
-CLUSTER_TAU, CLUSTER_SECONDS, CLUSTER_MAX_STEPS = 0.3, 25.0, 4
+# 24(c): tau, the steps' time budget (with the energy's 12-18 s, the
+# sub-phase near 25 s) and the most steps quimb_tpu ran
+CLUSTER_TAU, CLUSTER_SECONDS, CLUSTER_MAX_STEPS = 0.3, 10.0, 4
 CLUSTER_E_TOL = 1e-8
 # 25: the block, the SLQ settings (one wave of 1024 probes: the standard
 # error at stopping then sits well inside tol x scale), and the rsvd
@@ -3871,6 +3906,367 @@ def run_spectral(dmrg):
           flush=True)
 
 
+# -- phase 26: exact diagonalisation in a symmetry sector --------------------
+
+# quimb_tpu's values of phases 26 and 27, from scripts/slice15_reference.py
+SLICE15_REF = "scripts/slice15_reference.json"
+# the exact ground energy of the Heisenberg antiferromagnet on the 4 x 4
+# torus (S^z = 0), which quimb_tpu's sector matrix and scipy's eigsh
+# reproduce; the bounds on the relative energy, on the Ritz residual
+# ||H psi - E psi|| of the normalised state, and on the relative distance
+# of the matrix-free matvec from the ELL one (float64 rounding over 144
+# terms a row)
+ED_E_4X4 = -11.228483208428864
+ED_E_TOL, ED_RES_TOL, ED_MV_TOL = 1e-10, 1e-6, 1e-12
+# the ground state's Lanczos stopping rule (the Ritz value's change
+# between restarts, relative): at groundenergy's default 1e-10 the state
+# can stop a few 1e-6 from the eigenvector
+ED_STATE_TOL = 1e-13
+# the matvecs profiled together for the launch count
+ED_PROFILED = 5
+
+
+def _slice15_reference(part):
+    return json.loads(Path(SLICE15_REF).read_text())[part]
+
+
+def _torus_builder(Lx, Ly):
+    """The Heisenberg antiferromagnet on the Lx x Ly torus in the U1
+    sector of half filling, through the entry points."""
+    from quimb_torch.operator import HilbertSpace, heisenberg_from_edges
+
+    edges = quimb_torch.edges_2d_square(Lx, Ly, cyclic=True)
+    sites = sorted({s for e in edges for s in e})
+    hs = HilbertSpace(sites, symmetry="U1", sector=len(sites) // 2)
+    return heisenberg_from_edges(edges, hilbert_space=hs)
+
+
+def _coupled_ham_bytes(op):
+    """The device bytes of a CoupledHam: configurations, diagonal, rank
+    and amplitude tables."""
+    ts = [op.configs, op.diag] + [t for g in op.groups for t in g[:3]]
+    if op._segments:
+        ts += [op._pop] + [w[2] for _, ws in op._segments for w in ws]
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def run_sector_ed():
+    """Phase 26: the Heisenberg antiferromagnet on the 4 x 4 and 4 x 6 tori
+    in the U1 sector of half filling by the matrix-free CoupledHam."""
+    from quimb_torch.operator import CoupledHam
+
+    t_phase = time.perf_counter()
+    ref = _slice15_reference("ed")
+    _reset_launches()
+    b = _torus_builder(4, 4)
+    op = b.build_coupled_ham(dtype="float64")
+    if not (op.configs.is_cuda and op.configs.dtype == torch.int64):
+        raise AssertionError("the 4 x 4 configurations are not int64 words "
+                             "on the card")
+    e, secs = _timed(lambda: quimb_torch.groundenergy(op))
+    _on_card("4 x 4 groundenergy", e, torch.float64)
+    rel = abs(float(e) - ED_E_4X4) / abs(ED_E_4X4)
+    rel_q = abs(float(e) - ref["4x4"]["energy"]) / abs(ED_E_4X4)
+    ell = b.build_sparse_ham(dtype=torch.float64)
+    _on_card("4 x 4 SparseHam values", ell.vals, torch.float64)
+    x = _cuda(np.random.default_rng(SEED).standard_normal(op.shape[0]),
+              torch.float64)
+    want = ell.matvec(x)
+    mv_rel = (torch.linalg.norm(op.matvec(x) - want)
+              / torch.linalg.norm(want)).item()
+    print(f"sector ED 4 x 4 torus: D={op.shape[0]}, groundenergy "
+          f"{float(e)!r} in {secs:.3f} s; against the exact "
+          f"{ED_E_4X4!r} relative {rel:.3e}, against quimb_tpu's "
+          f"{ref['4x4']['energy']!r} {rel_q:.3e} (bound {ED_E_TOL:.0e}); "
+          f"CoupledHam against the ELL SparseHam relative {mv_rel:.3e} "
+          f"(bound {ED_MV_TOL:.0e})", flush=True)
+    if not (rel <= ED_E_TOL and rel_q <= ED_E_TOL and mv_rel <= ED_MV_TOL):
+        raise AssertionError("the 4 x 4 torus misses its energy or matvec")
+    del op, ell, x, want
+
+    base = _fresh_peak()
+    b, bsecs = _timed(lambda: _torus_builder(4, 6))
+    op, osecs = _timed(lambda: b.build_coupled_ham(dtype="float64"))
+    D = op.shape[0]
+    r = ref["4x6"]
+    if D != r["D"] or op.configs.dtype != torch.int64:
+        raise AssertionError(f"the 4 x 6 sector has {D} configurations")
+    print(f"sector ED 4 x 6 torus: D={D}, terms per arity "
+          f"{op.nterms_by_arity}, {op.ngroups} off-diagonal (sites, flip) "
+          f"groups; builder {bsecs:.3f} s, CoupledHam {osecs:.3f} s "
+          f"(configurations on the host, once), "
+          f"{_coupled_ham_bytes(op) / 1e6:.1f} MB on the card; quimb_tpu's "
+          f"sector matrix: {r['nnz']} nonzeros, built in "
+          f"{r['build_s']:.1f} s, scipy eigsh {r['solve_s']:.1f} s, peak "
+          f"{r['peak_rss_gb']:.2f} GB on the host (CPU)", flush=True)
+    with _calls(CoupledHam, "matvec") as count:
+        e, esecs = _timed(lambda: quimb_torch.groundenergy(op))
+        n_e = count[0]
+        psi, psecs = _timed(lambda: quimb_torch.groundstate(
+            op, tol=ED_STATE_TOL))
+        n_psi = count[0] - n_e
+    _on_card("4 x 6 groundenergy", e, torch.float64)
+    _on_card("4 x 6 groundstate", psi, torch.float64)
+    v = psi[:, 0] / torch.linalg.norm(psi[:, 0])
+    hv = op.matvec(v)
+    ritz = torch.dot(v, hv)
+    res = torch.linalg.norm(hv - ritz * v).item()
+    rel = abs(float(e) - r["energy"]) / abs(r["energy"])
+    rel_ritz = abs(float(ritz) - r["energy"]) / abs(r["energy"])
+    print(f"4 x 6 groundenergy {float(e)!r}: {n_e} matvecs, {esecs:.3f} s; "
+          f"groundstate (tol {ED_STATE_TOL:.0e}) {n_psi} matvecs, "
+          f"{psecs:.3f} s, Rayleigh quotient {float(ritz)!r}; against "
+          f"quimb_tpu's {r['energy']!r}: relative {rel:.3e} and "
+          f"{rel_ritz:.3e} (bound {ED_E_TOL:.0e}); Ritz residual {res:.3e} "
+          f"(bound {ED_RES_TOL:.0e}); peak {_peak_from(base):.3f} GB",
+          flush=True)
+    if not (rel <= ED_E_TOL and rel_ritz <= ED_E_TOL and res <= ED_RES_TOL):
+        raise AssertionError("the 4 x 6 torus misses its energy or residual")
+
+    x = _cuda(np.random.default_rng(SEED).standard_normal(D), torch.float64)
+    times = []
+    for _ in range(5):
+        times.append(_event_ms(op.matvec, (x,), reps=1))
+    ms = statistics.median(times)
+    # five matvecs under one profile: a single one read 23 activities in
+    # one run, where its kernels' times showed half of them missing
+    share, top, wall_us, count = _busy_share(
+        lambda: [op.matvec(x) for _ in range(ED_PROFILED)])
+    launches = count / ED_PROFILED
+    bound_ms = 24 * D / PEAK_BYTES * 1e3
+    print(f"CoupledHam matvec (D={D}, float64): {ms:.3f} ms (median of 5 "
+          f"CUDA-event timings {[round(t, 3) for t in times]}); "
+          f"{launches:g} device launches a matvec ({count} in "
+          f"{ED_PROFILED} under torch.profiler); bound: configs, x "
+          f"and y once, 24 B x D over {PEAK_BYTES / 1e12:.2f} TB/s = "
+          f"{bound_ms:.4f} ms, share {bound_ms / ms:.4f}", flush=True)
+    for name, us in top:
+        print(f"  {us / 1e3 / ED_PROFILED:.3f} ms a matvec  {name[:100]}",
+              flush=True)
+    from quimb_torch.linalg.lanczos import eigh_lanczos
+
+    share, top, wall_us, count = _busy_share(
+        lambda: eigh_lanczos(op, x, ncv=20, restarts=1))
+    print(f"one Lanczos restart (20 matvecs) under torch.profiler: "
+          f"{wall_us / 1e3:.3f} ms wall, {count} device activities, busy "
+          f"share " + ("not measured" if share is None else f"{share:.4f}"),
+          flush=True)
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError("the sector ED launched a sandwich kernel")
+    del op, psi, v, hv, x, b
+    torch.cuda.empty_cache()
+    print(f"sector ED phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+# -- phase 27: the dense matrix half on the exact 20-qubit state -------------
+
+MH_ENT_SITES = tuple(range(10))
+MH_MUTINF_SITES = (tuple(range(0, 5)), tuple(range(10, 15)))
+MH_LOGNEG_SITES = (tuple(range(4, 10)), tuple(range(10, 16)))
+MH_PAIR = (9, 10)
+# the ground state to machine precision: Lanczos restarts until the last
+# one, so the quantities sit within rounding of quimb_tpu's (held to 1e-10
+# absolute); the Lindblad and solve density operators within 1e-8
+# relative; the Lindblad chain, its dephasing rate and time
+MH_RESTARTS, MH_CALC_TOL, MH_RHO_TOL = 15, 1e-10, 1e-8
+MH_LINDBLAD_N, MH_GAMMA, MH_T = 10, 0.1, 1.0
+# the integrated <Z_0> against REFBASE and the expm path: quimb_tpu's RK45
+# keeps each step's error estimate under atol + rtol |psi| = 1.01e-8 (2-norm),
+# and its own run of this protocol on a CPU reads 1.66e-9 from REFBASE at
+# t = 1 (scripts/slice15_reference.json), past phase 11's 1e-9 for the
+# Krylov path; the port is held to quimb_tpu's steps at MH_CALC_TOL
+MH_Z_TOL = 1e-8
+
+
+def _z_all(rho, n):
+    """<Z_i> of every site of a density operator on the card."""
+    p = torch.real(torch.diagonal(rho))
+    idx = torch.arange(2**n, device=rho.device)
+    return [float(torch.sum(p * (1 - 2 * ((idx >> (n - 1 - i)) & 1))))
+            for i in range(n)]
+
+
+def _rel_list(got, want):
+    got, want = np.asarray(got, float), np.asarray(want, float)
+    return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+def run_matrix_half(expm_z0):
+    """Phase 27: calc's quantities of phase 11's N=20 ground state, then
+    Evolution by RK45 over phase 11's protocol; then a 10-site density
+    operator under the Lindblad equation and by solve."""
+    from quimb_torch import calc
+    from quimb_torch.core import dop, ikron, ptr
+    from quimb_torch.gen.operators import pauli
+
+    t_phase = time.perf_counter()
+    ref = _slice15_reference("dense")
+    _reset_launches()
+    base = _fresh_peak()
+    n = EXACT_N
+    dims = (2,) * n
+    H = quimb_torch.ham_heis(n, sparse=True)
+    psi, secs = _timed(lambda: quimb_torch.groundstate(
+        H, tol=0.0, restarts=MH_RESTARTS))
+    _on_card("N=20 ground state", psi, torch.float64)
+    op = quimb_torch.device_operator(H)
+    e = float(torch.dot(psi[:, 0], op @ psi[:, 0]))
+    print(f"matrix half: N={n} ground state by {MH_RESTARTS} Lanczos "
+          f"restarts in {secs:.3f} s, energy {e!r} (quimb_tpu's eigsh "
+          f"{ref['energy']!r})", flush=True)
+    rho2 = ptr(psi, dims, MH_PAIR)
+    got = {}
+    t0 = time.perf_counter()
+    got["entropy_subsys"] = calc.entropy_subsys(psi, dims, MH_ENT_SITES)
+    got["mutinf_subsys"] = calc.mutinf_subsys(psi, dims, *MH_MUTINF_SITES)
+    got["logneg_subsys"], lsecs = _timed(lambda: calc.logneg_subsys(
+        psi, dims, *MH_LOGNEG_SITES))
+    got["schmidt_gap"] = calc.schmidt_gap(psi, dims, MH_ENT_SITES)
+    got["concurrence"] = calc.concurrence(rho2)
+    got["pauli_correlations"] = list(calc.pauli_correlations(rho2, sysa=0,
+                                                             sysb=1))
+    torch.cuda.synchronize()
+    csecs = time.perf_counter() - t0
+    worst = 0.0
+    for k, v in got.items():
+        d = float(np.max(np.abs(np.asarray(v) - np.asarray(ref[k]))))
+        worst = max(worst, d)
+        print(f"  {k}: {v!r} (quimb_tpu {ref[k]!r}, distance {d:.3e})",
+              flush=True)
+    print(f"calc on the N={n} state: {csecs:.3f} s (logneg_subsys of a "
+          f"4096 x 4096 rho_AB {lsecs:.3f} s); largest distance from "
+          f"quimb_tpu's {worst:.3e} (bound {MH_CALC_TOL:.0e})", flush=True)
+    if not worst <= MH_CALC_TOL:
+        raise AssertionError("calc misses quimb_tpu's values")
+    del psi, rho2, op
+
+    z_refbase = _exact_reference()[1]
+    p0 = quimb_torch.computational_state("01" * (n // 2))
+    bit0 = (torch.arange(2**n, device=p0.device) >> (n - 1)) & 1
+    zdiag = (1 - 2 * bit0).to(torch.float64)
+    evo = quimb_torch.Evolution(p0, H, method="integrate")
+    zs, t0 = [], time.perf_counter()
+    for k in range(1, EXACT_NT + 1):
+        evo.update_to(EXACT_T * k / EXACT_NT)
+        p = torch.abs(evo.pt.reshape(-1)) ** 2
+        zs.append(float(torch.sum(p * zdiag) / torch.sum(p)))
+    torch.cuda.synchronize()
+    isecs = time.perf_counter() - t0
+    _on_card("integrated state", evo.pt, torch.complex128)
+    d_ref = float(np.max(np.abs(np.asarray(zs) - z_refbase)))
+    d_expm = float(np.max(np.abs(np.asarray(zs) - np.asarray(expm_z0))))
+    d_q = float(np.max(np.abs(np.asarray(zs) - np.asarray(
+        ref["integrate_z0"]))))
+    print(f"Evolution(method='integrate') N={n} to t={EXACT_T}: <Z_0> {zs}; "
+          f"{evo.steps} RK45 steps ({evo.rejected} rejected), "
+          f"{evo.host_reads} host reads, {isecs:.3f} s; against REFBASE "
+          f"{d_ref:.3e}, the expm path {d_expm:.3e} (bound "
+          f"{MH_Z_TOL:.0e}), quimb_tpu's RK45 {d_q:.3e} (bound "
+          f"{MH_CALC_TOL:.0e})", flush=True)
+    if not (d_ref <= MH_Z_TOL and d_expm <= MH_Z_TOL
+            and d_q <= MH_CALC_TOL):
+        raise AssertionError("the integrated <Z_0> misses its references")
+    del evo, p0, zdiag, bit0
+
+    ref = _slice15_reference("lindblad")
+    n = MH_LINDBLAD_N
+    dims = (2,) * n
+    Hd = quimb_torch.ham_heis(n)
+    Z = pauli("Z")
+    ls = [ikron(Z, dims, i) for i in range(n)]
+    p0 = dop(quimb_torch.computational_state("01" * (n // 2)))
+    lind = quimb_torch.Evolution(p0, (Hd, ls, MH_GAMMA), method="integrate")
+    _, lsecs = _timed(lambda: lind.update_to(MH_T))
+    _on_card("Lindblad rho", lind.pt, torch.complex128)
+    z, pur = _z_all(lind.pt, n), float(torch.real(torch.sum(
+        lind.pt * lind.pt.T)))
+    dz, dp = _rel_list(z, ref["lindblad_z"]), abs(
+        pur - ref["lindblad_purity"]) / ref["lindblad_purity"]
+    print(f"Lindblad, N={n} ({2**n} x {2**n} rho), gamma={MH_GAMMA} dephasing "
+          f"on every site, to t={MH_T}: {lind.steps} RK45 steps "
+          f"({lind.rejected} rejected), {lind.host_reads} host reads, "
+          f"{lsecs:.3f} s (quimb_tpu's CPU run {ref['lindblad_s']:.1f} s, "
+          f"host); <Z_0> {z[0]!r}, purity {pur!r}; relative to quimb_tpu's "
+          f"<Z_i> {dz:.3e}, purity {dp:.3e} (bound {MH_RHO_TOL:.0e})",
+          flush=True)
+    solve = quimb_torch.Evolution(p0, Hd, method="solve")
+    _, ssecs = _timed(lambda: solve.update_to(MH_T))
+    zs_, pur_s = _z_all(solve.pt, n), float(torch.real(torch.sum(
+        solve.pt * solve.pt.T)))
+    diag = torch.real(torch.diagonal(solve.pt)).cpu().numpy()
+    ds = max(_rel_list(zs_, ref["solve_z"]), _rel_list(
+        diag, ref["solve_diag"]), abs(pur_s - ref["solve_purity"]))
+    print(f"solve, N={n} density operator to t={MH_T}: {ssecs:.3f} s; "
+          f"<Z_i>, diagonal and purity relative to quimb_tpu's {ds:.3e} "
+          f"(bound {MH_RHO_TOL:.0e}); peak {_peak_from(base):.3f} GB",
+          flush=True)
+    if not (dz <= MH_RHO_TOL and dp <= MH_RHO_TOL and ds <= MH_RHO_TOL):
+        raise AssertionError("the density operators miss quimb_tpu's")
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError("the matrix half launched a sandwich kernel")
+    del lind, solve, Hd, ls, p0
+    torch.cuda.empty_cache()
+    print(f"matrix half phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+# -- phase 28: CircuitDense at 28 qubits --------------------------------------
+
+CDENSE_N, CDENSE_DEPTH, CDENSE_SEED, CDENSE_SAMPLES = 28, 8, 7, 4
+# the dense amplitudes against the lazy network's (both complex128: the
+# dense state passes 108 gates, each a rounding of 2**28 entries); the
+# norm of the state
+CDENSE_AMP_TOL, CDENSE_NORM_TOL = 1e-10, 1e-12
+
+
+def run_circuit_dense():
+    """Phase 28: the gates of circ_ansatz_1D_brickwork(28, 8, seed=7)
+    applied eagerly to a 2**28 complex128 state, held to the lazy
+    Circuit."""
+    t_phase = time.perf_counter()
+    _reset_launches()
+    base = _fresh_peak()
+    lazy = quimb_torch.circ_ansatz_1D_brickwork(CDENSE_N, CDENSE_DEPTH,
+                                                seed=CDENSE_SEED)
+    dense, isecs = _timed(lambda: quimb_torch.CircuitDense(CDENSE_N))
+    _, gsecs = _timed(lambda: dense.apply_gates(lazy.gates))
+    ngates = len(lazy.gates)
+    _on_card("CircuitDense state", dense.psi, torch.complex128)
+    nrm = float(torch.linalg.norm(dense.psi))
+    samples, ssecs = _timed(lambda: list(dense.sample(CDENSE_SAMPLES,
+                                                      seed=SEED)))
+    amps = [dense.amplitude(b) for b in samples]
+    lazy_amps, asecs = _timed(lambda: [lazy.amplitude(b) for b in samples])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(amps, lazy_amps))
+    ZZ = np.kron(np.diag([1.0, -1.0]), np.diag([1.0, -1.0]))
+    zz_d, zsecs = _timed(lambda: complex(dense.local_expectation(ZZ,
+                                                                 (13, 14))))
+    zz_l = complex(lazy.local_expectation(ZZ, (13, 14)))
+    dzz = abs(zz_d - zz_l)
+    print(f"CircuitDense, {CDENSE_N} qubits ({2**CDENSE_N * 16 / 1e9:.2f} "
+          f"GB complex128): {ngates} gates in {gsecs:.3f} s "
+          f"({gsecs / ngates * 1e3:.3f} ms a gate; start state {isecs:.3f} "
+          f"s); | |psi| - 1 | {abs(nrm - 1):.3e} (bound "
+          f"{CDENSE_NORM_TOL:.0e}); sample({CDENSE_SAMPLES}, seed={SEED}) "
+          f"{samples} in {ssecs:.3f} s (|psi|^2 to the host and "
+          f"default_rng's draw); their amplitudes against the lazy "
+          f"Circuit's (computed in {asecs:.3f} s): relative {rel:.3e} "
+          f"(bound {CDENSE_AMP_TOL:.0e}); <ZZ> on qubits 13, 14 "
+          f"{zz_d.real!r} in {zsecs:.3f} s, the lazy Circuit's "
+          f"{zz_l.real!r}, distance {dzz:.3e}; peak "
+          f"{_peak_from(base):.3f} GB", flush=True)
+    if not (abs(nrm - 1) <= CDENSE_NORM_TOL and rel <= CDENSE_AMP_TOL
+            and dzz <= CDENSE_AMP_TOL):
+        raise AssertionError("CircuitDense misses the lazy Circuit")
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError("CircuitDense launched a sandwich kernel")
+    del dense, lazy
+    torch.cuda.empty_cache()
+    print(f"CircuitDense phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main():
     t_start = time.perf_counter()
     check_device()
@@ -3896,7 +4292,11 @@ def main():
     for dtype in TEBD_REAL:
         run_tebd_path(dtype)
     torch.cuda.empty_cache()
-    run_exact_path()
+    expm_z0 = run_exact_path()
+    torch.cuda.empty_cache()
+    run_matrix_half(expm_z0)
+    run_sector_ed()
+    run_circuit_dense()
     torch.cuda.empty_cache()
     run_circuit_path()
     torch.cuda.empty_cache()

@@ -32,8 +32,14 @@ first-order rules; ALS, tree and autodiff fits; the fit, src, projector
 and bidm 1D compressions; ``MERA``; ``experimental.ClusterUpdateGen``),
 the tensor linear operators (``TNLinearOperator``) and the spectral
 estimates (stochastic Lanczos quadrature, randomized SVDs). DMRG sweeps a ring of
-40 sites or more with its segmented engine, and TEBD evolves rings too;
-``heisenberg_energy`` is the Heisenberg chain's scaling formula.
+40 sites or more with its segmented engine, and TEBD evolves rings too.
+And the rest of the matrix half: ``operator`` (Hilbert spaces with
+symmetry sectors, the term builder and the matrix-free sector operator
+``CoupledHam``), ``calc`` (entropies, negativities, fidelities,
+measurement, decompositions), ``Evolution`` by RK45, ``solve`` and Krylov
+for kets and density operators, the rest of ``core``, ``linalg`` and
+``gen``, ``gates`` and the dense circuit simulator ``CircuitDense``; their
+names resolve at the top level on first use, as quimb_tpu's do.
 Every builder and entry point
 puts its tensors on the GPU unless it is given another ``device``, such as
 ``"cpu"``. The package imports torch, never JAX.
@@ -79,3 +85,23 @@ __all__ = [*_tensor_all, *_linalg_all, "Evolution", "computational_state",
            "device_operator", "eigensystem_partial", "expm_multiply",
            "groundenergy", "groundstate", "ham_heis", "heisenberg_energy",
            "neel_state"]
+
+# the names of the exact layer's modules, resolved on first use (quimb_tpu's
+# lazy index, quimb_tpu/__init__.py)
+_LAZY_MODULES = ("core", "calc", "evo", "gen.states", "gen.operators",
+                 "gen.rand", "linalg.base_linalg", "linalg.approx_spectral",
+                 "linalg.rand_linalg", "gates", "operator")
+_LAZY_INDEX = {}
+
+
+def __getattr__(name):
+    import importlib
+
+    if not _LAZY_INDEX:
+        for modname in _LAZY_MODULES:
+            mod = importlib.import_module(f"{__name__}.{modname}")
+            for key in getattr(mod, "__all__", ()):
+                _LAZY_INDEX.setdefault(key, mod)
+    if name in _LAZY_INDEX:
+        return getattr(_LAZY_INDEX[name], name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -11,7 +11,8 @@ crosses like an MPS, and a SimpleUpdate's gauge dict as its vectors; an
 arbitrary-geometry network crosses with its class and its site ids, and a 3D
 network (``TensorNetwork3D``, ``PEPS3D``) with its class, its lattice size
 and its tag and index ids; a MERA with its
-tensors' ``left_inds`` and its ids.
+tensors' ``left_inds`` and its ids; a ``SparseOperatorBuilder`` as its raw
+terms, Hilbert space and settings.
 Tensors land on ``device``, the GPU unless the caller names another.
 """
 
@@ -217,6 +218,32 @@ def from_tpu_gates(gates):
              array=None if g.label != "RAW" else to_host(g.array))
         for g in gates
     ]
+
+
+def from_tpu_operator_builder(b):
+    """A quimb_tpu ``SparseOperatorBuilder`` -> the port's, with the same raw
+    terms (an explicit 2x2 factor rebuilt from quimb_tpu's key, its entries
+    rounded to 14 decimals as the key holds them), the same Hilbert space
+    (sites, their order, symmetry and sector) and the same Jordan-Wigner,
+    Pauli-decomposition, tolerance and dtype settings."""
+    from .operator import HilbertSpace, SparseOperatorBuilder
+
+    hs = None
+    if b._hilbert_space is not None:
+        old = b._hilbert_space
+        hs = HilbertSpace(old.sites, symmetry=old.symmetry,
+                          sector=old.sector)
+        hs.set_ordering(old.sites)
+    new = SparseOperatorBuilder(
+        hilbert_space=hs, dtype=b._dtype,
+        jordan_wigner=b._transform_jordan_wigner,
+        pauli_decompose=b._transform_pauli_decompose, atol=b._atol)
+    for ops, coeff in b._terms_raw.items():
+        new.add_term(coeff, *(
+            (op if isinstance(op, str)
+             else np.asarray(op, dtype=complex).reshape(2, 2), site)
+            for op, site in ops))
+    return new
 
 
 def to_numpy(tensors):

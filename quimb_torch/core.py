@@ -1,18 +1,26 @@
-"""The exact layer: kets, Kronecker products and Hamiltonians as sums of
-local terms, with the device operators that apply them.
+"""The exact layer: quantum objects, Kronecker products, partial traces and
+Hamiltonians as sums of local terms, with the device operators that apply
+them.
 
-Port of the parts of ``quimb_tpu/core.py`` that the exact solvers run:
-``quimbify`` / ``qu`` / ``ket``, ``dag``, ``kron``, ``ham_from_terms``
-(host scipy assembly, as in quimb_tpu) and the two device operators, the
-ELL :class:`SparseHam` and the per-term :class:`LocalTermsHam`, with
-:func:`device_operator` choosing between them. Kets are (d, 1) columns. A
-device operator is a plain object holding tensors on one device; it has no
-parameters. quimb_tpu's scatter-free formulations were chosen for the TPU;
-the port keeps them as the reference does, and its COO path uses
-``index_add_`` where quimb_tpu has ``segment_sum``.
+Port of ``quimb_tpu/core.py``: ``quimbify`` / ``qu`` / ``ket`` / ``bra`` /
+``dop``, the predicates, ``kron`` / ``ikron`` / ``pkron`` / ``permute``,
+``partial_trace``, ``expectation`` and the small helpers,
+``ham_from_terms`` (host scipy assembly, as in quimb_tpu) and the two
+device operators, the ELL :class:`SparseHam` and the per-term
+:class:`LocalTermsHam`, with :func:`device_operator` choosing between
+them. Kets are (d, 1) columns. A device operator is a plain object holding
+tensors on one device; it has no parameters. quimb_tpu's scatter-free
+formulations were chosen for the TPU; the port keeps them as the reference
+does, and its COO path uses ``index_add_`` where quimb_tpu has
+``segment_sum``. A reshape to one axis a subsystem merges runs of
+subsystems that stay together first (:func:`dim_compress`), so that a
+partial trace or permutation of many sites does not hit the bound on the
+number of dimensions of a CUDA copy.
 """
 
 import functools
+import math
+import numbers
 import operator
 
 import numpy as np
@@ -38,9 +46,60 @@ def isket(qob):
     return len(shape) == 2 and shape[0] > 1 and shape[1] == 1
 
 
+def isbra(qob):
+    shape = np.shape(qob)
+    return len(shape) == 2 and shape[0] == 1 and shape[1] > 1
+
+
 def isop(qob):
     shape = np.shape(qob)
     return len(shape) == 2 and shape[0] > 1 and shape[1] > 1
+
+
+def isvec(qob):
+    return isket(qob) or isbra(qob)
+
+
+def isscalarish(qob):
+    return np.isscalar(qob) or (hasattr(qob, "shape")
+                                and tuple(qob.shape) == ())
+
+
+def isdense(qob):
+    return isinstance(qob, (torch.Tensor, np.ndarray))
+
+
+def issparse(qob):
+    return sp.issparse(qob)
+
+
+def _host(qob):
+    return qob.toarray() if sp.issparse(qob) else to_host(qob)
+
+
+def isreal(qob, **allclose_opts):
+    """Whether ``qob`` has no imaginary part (within ``allclose``)."""
+    data = _host(qob)
+    return (not np.iscomplexobj(data)
+            or np.allclose(data.imag, 0.0, **allclose_opts))
+
+
+def isherm(qob, **allclose_opts):
+    if sp.issparse(qob):
+        return np.allclose((qob - qob.getH()).data, 0.0, **allclose_opts)
+    a = _host(qob)
+    return np.allclose(a, a.conj().T, **allclose_opts)
+
+
+def ispos(qob, tol=1e-15):
+    """Whether the hermitian ``qob`` has no eigenvalue below ``-tol``."""
+    w = torch.linalg.eigvalsh(torch.as_tensor(_host(qob)))
+    return bool((w > -tol).all())
+
+
+def make_immutable(x):
+    """Kept for quimb_tpu's API; tensors need no freezing here."""
+    return x
 
 
 def _real_dtype(dtype):
@@ -55,12 +114,15 @@ def _apply_dtype(op_dtype, x_dtype):
     return complex_dtype(x_dtype) if op_dtype.is_complex else x_dtype
 
 
-def quimbify(data, qtype=None, normalized=False, dtype=None, device=None):
+def quimbify(data, qtype=None, normalized=False, chopped=False,
+             sparse=None, dtype=None, device=None):
     """``data`` as a quantum object in ``dtype`` (complex128 by default):
     a ket (d, 1) for ``qtype="ket"`` or a 1-d input, a bra (1, d),
     conjugated, for ``"bra"``, a density operator for ``"dop"``. A tensor
     stays on its device unless ``device`` is given; host data goes to
-    ``device``, the GPU by default."""
+    ``device``, the GPU by default. With ``sparse`` the result is a host
+    scipy CSR matrix (quimb_tpu's is a JAX BCOO), which
+    :func:`device_operator` takes to the device."""
     dtype = dtype or DEFAULT_DTYPE
     if sp.issparse(data):
         data = data.toarray()
@@ -80,8 +142,12 @@ def quimbify(data, qtype=None, normalized=False, dtype=None, device=None):
             x = k @ dag(k)
     elif x.ndim == 1:
         x = torch.reshape(x, (-1, 1))
+    if chopped:
+        x = chop(x)
     if normalized:
-        x = x / (torch.trace(x) if isop(x) else torch.linalg.norm(x))
+        x = normalize(x)
+    if sparse:
+        return sp.csr_matrix(to_host(x))
     return x
 
 
@@ -92,9 +158,155 @@ def ket(data, **kwargs):
     return quimbify(data, qtype="ket", **kwargs)
 
 
+def bra(data, **kwargs):
+    return quimbify(data, qtype="bra", **kwargs)
+
+
+def dop(data, **kwargs):
+    return quimbify(data, qtype="dop", **kwargs)
+
+
+def sparse_matrix(data, stype="csr", dtype=None):
+    """A host scipy sparse matrix of ``data``."""
+    return sp.coo_matrix(_host(data), dtype=dtype).asformat(stype)
+
+
+def infer_size(p, base=2):
+    """The number of subsystems of dimension ``base`` in ``p``."""
+    d = max(np.shape(p))
+    n = round(math.log(d, base))
+    if base**n != d:
+        raise ValueError(f"size {d} is not a power of {base}")
+    return n
+
+
 def dag(qob):
     """Hermitian conjugate."""
     return torch.conj(torch.swapaxes(qob, -2, -1))
+
+
+def mul(x, y):
+    """Element-wise product (quimb's ``mul``; the matrix product is
+    :func:`dot`)."""
+    if sp.issparse(x):
+        return x.multiply(y)
+    if sp.issparse(y):
+        return y.multiply(x)
+    return x * y
+
+
+def dot(x, y):
+    return x @ y
+
+
+def vdot(a, b):
+    """The inner product <a|b> of two kets."""
+    return torch.vdot(a.reshape(-1), b.reshape(-1))
+
+
+def rdot(a, b):
+    """The product of ``a`` as a row with ``b`` as a column, unconjugated."""
+    return torch.squeeze(a.reshape(1, -1) @ b.reshape(-1, 1))
+
+
+def ldmul(diag, mat):
+    return diag.reshape(-1, 1) * mat
+
+
+def rdmul(mat, diag):
+    return mat * diag.reshape(1, -1)
+
+
+def outer(a, b):
+    return a.reshape(-1, 1) * torch.conj(b.reshape(1, -1))
+
+
+def explt(l, t):
+    return torch.exp((-1.0j * t) * l)
+
+
+def normalize(qob, inplace=False):
+    """A ket or bra over its 2-norm, a density operator over its trace."""
+    if isop(qob):
+        return qob / torch.trace(qob)
+    return qob / torch.linalg.norm(qob)
+
+
+normalize_ = nmlz = normalize
+
+
+def chop(qob, tol=1e-15, inplace=False):
+    """``qob`` with the entries below ``tol`` times its largest magnitude
+    set to zero."""
+    absx = torch.abs(qob)
+    return torch.where(absx > tol * torch.max(absx), qob,
+                       torch.zeros((), dtype=qob.dtype, device=qob.device))
+
+
+chop_ = chop
+
+
+def expectation(a, b):
+    """|<a|b>|^2 of two vectors, <b|A|b> of an operator and a vector, or
+    Re tr(a b) of two operators."""
+    if isvec(a) and isvec(b):
+        return torch.abs(vdot(a, b)) ** 2
+    if isop(a) and isvec(b):
+        b = b.reshape(-1, 1)
+        return torch.real(torch.squeeze(dag(b) @ (a @ b)))
+    if isvec(a) and isop(b):
+        return expectation(b, a)
+    return torch.real(torch.sum(a * b.T))
+
+
+expec = expectation
+
+
+def tr(a):
+    return torch.trace(a)
+
+
+trace = tr
+
+
+def itrace(a, axes=(0, 1)):
+    """The trace over one pair of axes, or over two sequences of axes
+    traced pairwise."""
+    if isinstance(axes[0], numbers.Integral):
+        axes = ((axes[0],), (axes[1],))
+    gone = set()
+    for axis1, axis2 in zip(*axes):
+        mod1 = sum(x < axis1 for x in gone)
+        mod2 = sum(x < axis2 for x in gone)
+        gone |= {axis1, axis2}
+        a = torch.diagonal(a, dim1=axis1 - mod1, dim2=axis2 - mod2).sum(-1)
+    return a
+
+
+def dim_compress(dims, inds):
+    """``dims`` with each run of neighbouring subsystems that are all in
+    ``inds``, or all out of it, merged into one, and ``inds`` renumbered
+    for the merged subsystems."""
+    if isinstance(inds, numbers.Integral):
+        inds = (inds,)
+    inds = set(inds)
+    new_dims, new_inds = [], []
+    d_accum, in_target = 1, None
+    for i, d in enumerate(dims):
+        this_target = i in inds
+        if in_target is None:
+            in_target, d_accum = this_target, d
+        elif this_target == in_target:
+            d_accum *= d
+        else:
+            if in_target:
+                new_inds.append(len(new_dims))
+            new_dims.append(d_accum)
+            in_target, d_accum = this_target, d
+    if in_target:
+        new_inds.append(len(new_dims))
+    new_dims.append(d_accum)
+    return tuple(new_dims), tuple(new_inds)
 
 
 def kron(*ops, device=None):
@@ -116,6 +328,138 @@ def kron(*ops, device=None):
         dt = torch.promote_types(out.dtype, op.dtype)
         out = torch.kron(out.to(dt), op.to(dt))
     return out
+
+
+def kronpow(a, p, **kron_opts):
+    return kron(*(a,) * p, **kron_opts)
+
+
+def eye(d, sparse=False, dtype=None, device=None):
+    """The identity of dimension ``d``: a host scipy CSR matrix with
+    ``sparse``, else a tensor on ``device``, the GPU by default."""
+    dtype = dtype or DEFAULT_DTYPE
+    if sparse:
+        return sp.eye(d, dtype=numpy_dtype(dtype), format="csr")
+    return torch.eye(d, dtype=dtype, device=resolve_device(device))
+
+
+identity = eye
+speye = functools.partial(eye, sparse=True)
+
+
+def _find_dims_inds(dims, inds):
+    if isinstance(inds, numbers.Integral):
+        inds = (int(inds),)
+    return tuple(dims), tuple(int(i) for i in inds)
+
+
+def ikron(ops, dims, inds, sparse=None, device=None):
+    """The operator(s) ``ops`` placed at the subsystems ``inds`` of a
+    system of dimensions ``dims``, the identity elsewhere; an operator may
+    span several neighbouring subsystems. A host scipy CSR matrix when
+    any factor is sparse (or ``sparse``), else a tensor on ``device``, or
+    the first tensor's device, or the GPU."""
+    dims, inds = _find_dims_inds(dims, inds)
+    if not isinstance(ops, (list, tuple)):
+        ops = (ops,) * len(inds)
+    ops = list(ops)
+    if len(ops) == 1 and len(inds) > 1:
+        ops = ops * len(inds)
+    op_map = dict(zip(inds, ops))
+    any_sparse = sparse or any(sp.issparse(op) for op in ops)
+    if device is None and not any_sparse:
+        device = next((op.device for op in ops
+                       if isinstance(op, torch.Tensor)), None)
+    factors, i, n = [], 0, len(dims)
+    while i < n:
+        if i in op_map:
+            factors.append(op_map[i])
+            # the operator may span several sites
+            d_op, span, dd = op_map[i].shape[0], 1, dims[i]
+            while dd < d_op:
+                span += 1
+                dd *= dims[i + span - 1]
+            i += span
+        else:
+            d_id = 1
+            while i < n and i not in op_map:
+                d_id *= dims[i]
+                i += 1
+            factors.append(sp.eye(d_id, format="csr") if any_sparse
+                           else eye(d_id, device=device))
+    return kron(*factors, device=device)
+
+
+eyepad = ikron
+
+
+def pkron(op, dims, inds, **ikron_opts):
+    """Like :func:`ikron`, for one operator acting on the (not necessarily
+    neighbouring or ordered) subsystems ``inds``: placed on the leading
+    subsystems, then permuted there."""
+    dims, inds = _find_dims_inds(dims, inds)
+    n = len(dims)
+    if list(inds) == list(range(inds[0], inds[0] + len(inds))):
+        return ikron(op, dims, inds[0], **ikron_opts)
+    new_order = list(inds) + [i for i in range(n) if i not in inds]
+    new_dims = [dims[i] for i in new_order]
+    big = ikron(op, new_dims, tuple(range(len(inds))), **ikron_opts)
+    if sp.issparse(big):
+        big = to_device(big.toarray(), dtype=DEFAULT_DTYPE,
+                        device=resolve_device(ikron_opts.get("device")))
+    perm = [new_order.index(k) for k in range(n)]
+    return permute(big, new_dims_order(dims, new_order), perm)
+
+
+def new_dims_order(dims, order):
+    return tuple(dims[i] for i in order)
+
+
+def _merge_perm(dims, perm):
+    """(dims, perm) with every run of source subsystems that the
+    permutation keeps together and in order merged into one."""
+    groups = [[perm[0]]]
+    for a in perm[1:]:
+        if a == groups[-1][-1] + 1:
+            groups[-1].append(a)
+        else:
+            groups.append([a])
+    order = sorted(range(len(groups)), key=lambda g: groups[g][0])
+    new_dims = tuple(prod(dims[a] for a in groups[g]) for g in order)
+    rank = {g: k for k, g in enumerate(order)}
+    return new_dims, tuple(rank[g] for g in range(len(groups)))
+
+
+def permute(p, dims, perm):
+    """The subsystems of the state or operator ``p`` permuted: subsystem
+    ``perm[k]`` of ``p`` becomes subsystem ``k``."""
+    dims, perm = _merge_perm(tuple(dims), tuple(perm))
+    n, d = len(dims), prod(dims)
+    if isop(p):
+        t = p.reshape(dims + dims).permute(perm + tuple(n + i for i in perm))
+        return t.reshape(d, d)
+    return p.reshape(dims).permute(perm).reshape(p.shape)
+
+
+def partial_trace(p, dims, keep):
+    """The reduced density operator of the subsystems ``keep`` of the
+    state or density operator ``p`` on subsystems of dimensions
+    ``dims``."""
+    if isinstance(keep, numbers.Integral):
+        keep = (int(keep),)
+    dims, keep = dim_compress(tuple(dims), tuple(sorted(keep)))
+    lose = tuple(i for i in range(len(dims)) if i not in keep)
+    dk = prod(dims[i] for i in keep)
+    if isvec(p):
+        t = p.reshape(dims).permute(keep + lose).reshape(dk, -1)
+        return t @ dag(t)
+    n, dl = len(dims), prod(dims[i] for i in lose)
+    t = p.reshape(dims + dims).permute(
+        keep + lose + tuple(n + i for i in keep) + tuple(n + i for i in lose))
+    return torch.einsum("ajbj->ab", t.reshape(dk, dl, dk, dl))
+
+
+ptr = partial_trace
 
 
 def ham_from_terms(terms, dims, sparse=False, dtype=None, device=None):
@@ -365,3 +709,77 @@ def device_operator(A, dtype=None, device=None):
         dims, terms = lt
         return LocalTermsHam(dims, terms, dtype=dtype, device=device)
     return SparseHam(A, dtype=dtype, device=device)
+
+
+# -- small helpers of quimb's API ---------------------------------------------
+
+from math import (cos, exp, log, log2, log10, pi, sin,  # noqa: E402,F401
+                  sqrt, tan)
+
+
+class qarray(np.ndarray):
+    """A ``numpy.ndarray`` with a compact repr and ``.H`` (reference
+    ``qarray`` core.py:190), for host copies; tensors stay tensors."""
+
+    def __new__(cls, input_array, dtype=None):
+        return np.asarray(input_array, dtype=dtype).view(cls)
+
+    @property
+    def H(self):
+        return self.conj().T
+
+    def __repr__(self):
+        with np.printoptions(precision=6, linewidth=120, suppress=True):
+            s = np.ndarray.__repr__(np.asarray(self))
+        return s.replace("array", "qarray", 1)
+
+
+sparse = sparse_matrix
+
+
+def _find_shape_of_nested_int_array(x):
+    """The shape of a nested list structure of ints."""
+    shape, sub = [], x
+    while not isinstance(sub, (int, np.integer)):
+        shape.append(len(sub))
+        sub = sub[0]
+    return tuple(shape)
+
+
+def dim_map(dims, coos, cyclic=False, trim=False):
+    """Flatten multi-dimensional ``dims`` and map coordinate tuples to flat
+    indices (reference ``dim_map`` core.py:1761)."""
+    if isinstance(dims, np.ndarray):
+        szs, ndim = dims.shape, dims.ndim
+    else:
+        szs = _find_shape_of_nested_int_array(dims)
+        ndim = len(szs)
+    if ndim == 1 and coos and isinstance(coos[0], (int, np.integer)):
+        coos = [(c,) for c in coos]
+    coos = list(map(tuple, coos))
+    if cyclic:
+        coos = [tuple(c % s for c, s in zip(coo, szs)) for coo in coos]
+    elif trim:
+        coos = [coo for coo in coos
+                if all(0 <= c < s for c, s in zip(coo, szs))]
+    elif any(not (0 <= c < s) for coo in coos for c, s in zip(coo, szs)):
+        raise ValueError("coordinates beyond dimension size")
+    flat_dims = tuple(np.asarray(dims).flatten().tolist())
+    strides = np.cumprod((1,) + szs[:0:-1])[::-1]
+    inds = tuple(int(sum(c * st for c, st in zip(coo, strides)))
+                 for coo in coos)
+    return flat_dims, inds
+
+
+__all__ = [
+    "prod", "isket", "isbra", "isop", "isvec", "isscalarish", "isdense",
+    "issparse", "isreal", "isherm", "ispos", "make_immutable", "quimbify",
+    "qu", "ket", "bra", "dop", "sparse_matrix", "infer_size", "dag", "mul",
+    "dot", "vdot", "rdot", "ldmul", "rdmul", "outer", "explt", "normalize",
+    "normalize_", "nmlz", "chop", "chop_", "expectation", "expec", "tr",
+    "trace", "itrace", "dim_compress", "kron", "kronpow", "eye",
+    "identity", "speye", "ikron", "eyepad", "pkron", "new_dims_order",
+    "permute", "partial_trace", "ptr", "ham_from_terms", "SparseHam",
+    "LocalTermsHam", "device_operator", "qarray", "sparse", "dim_map",
+    "cos", "exp", "log", "log2", "log10", "pi", "sin", "sqrt", "tan",
+]

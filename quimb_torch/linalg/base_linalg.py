@@ -1,14 +1,20 @@
-"""Extremal eigenpairs and ``exp(A) v`` of the exact layer.
+"""Dense and iterative eigensolving, matrix functions and norms.
 
-Port of the solver front end of ``quimb_tpu/linalg/base_linalg.py``:
-``eigensystem_partial`` with its backends (``numpy``: a dense
-``torch.linalg.eigh``; ``lanczos``: restarted Lanczos with deflation;
-``lobpcg``; ``scipy``: ARPACK on the host), ``groundstate`` /
-``groundenergy`` and ``expm_multiply``. An operator is a host scipy matrix,
-made a device operator on ``device`` (the GPU unless the caller names
-another); a :class:`~quimb_torch.core.SparseHam` or
-:class:`~quimb_torch.core.LocalTermsHam`, on its own device; a dense tensor
-or array; or an object with ``shape``, ``dtype`` and ``@``.
+Port of ``quimb_tpu/linalg/base_linalg.py``: ``eigensystem_partial`` with
+its backends (``numpy``: a dense ``torch.linalg.eigh``; ``lanczos``:
+restarted Lanczos with deflation; ``lobpcg``; ``scipy``: ARPACK on the
+host), ``groundstate`` / ``groundenergy``, ``expm_multiply``, the full
+``eigensystem`` and its forms (``eig``, ``eigh``, ``eigvalsh``, ...), the
+spectral windows (``bound_spectrum``, ``eigh_window``), ``svd`` /
+``svds``, the norms, ``expm``, ``sqrtm``, ``Lazy`` and
+``IdentityLinearOperator``. An operator is a host scipy matrix, made a
+device operator on ``device`` (the GPU unless the caller names another); a
+:class:`~quimb_torch.core.SparseHam` or
+:class:`~quimb_torch.core.LocalTermsHam`, on its own device; a dense
+tensor or array; a :class:`Lazy` one, built when it is used; or an object
+with ``shape``, ``dtype`` and ``@`` (such as
+:class:`~quimb_torch.operator.configdevice.CoupledHam`), solved on its
+``device`` when it has one.
 """
 
 import numpy as np
@@ -43,9 +49,37 @@ def _dense_matvec(A):
     return mv
 
 
+class Lazy:
+    """A lazily built operator: ``Lazy(fn, *args, shape=...)`` builds
+    ``fn(*args, **kwargs)`` (times ``factor``) when it is called
+    (reference ``Lazy`` base_linalg.py:632)."""
+
+    def __init__(self, fn, *args, shape=None, factor=None, **kwargs):
+        if shape is None:
+            raise TypeError("`shape` must be specified.")
+        self.fn = fn
+        self.args = args
+        self.kwargs = kwargs
+        self.shape = shape
+        self.factor = factor
+        self.dtype = None
+
+    def __call__(self, **kwargs):
+        A = self.fn(*self.args, **self.kwargs, **kwargs)
+        if self.factor is not None:
+            A = self.factor * A
+        return A
+
+    def __repr__(self):
+        return f"<Lazy({self.fn.__name__}, shape={self.shape})>"
+
+
 def _as_operator(A, device=None):
     """Normalise an operator: returns (matvec, n, dtype, dense tensor or
-    None, device)."""
+    None, device). An operator that carries a ``device`` is applied
+    there."""
+    if isinstance(A, Lazy):
+        A = A()
     if sp.issparse(A):
         A = device_operator(A, device=device)
     if isinstance(A, (SparseHam, LocalTermsHam)):
@@ -56,8 +90,9 @@ def _as_operator(A, device=None):
         return _dense_matvec(A), A.shape[0], A.dtype, A, A.device
     if callable(A) and not hasattr(A, "shape"):
         raise ValueError("bare callables need a wrapper with .shape")
+    own = getattr(A, "device", None)
     return (lambda x: A @ x), A.shape[0], A.dtype, None, \
-        resolve_device(device)
+        torch.device(own) if own is not None else resolve_device(device)
 
 
 def choose_backend(A, k, int_eps=False):
@@ -239,3 +274,213 @@ def expm_multiply(mat, vec, ncv=None, device=None):
     else:
         out = expm_multiply_krylov(mv, v, t=1.0, ncv=ncv, hermitian=True)
     return torch.reshape(out, np.shape(vec))
+
+
+# -- full eigensystems, windows, SVD, norms and matrix functions --------------
+
+
+def _dense(A, device=None):
+    """``A`` as a dense tensor: a tensor as it is, host data on ``device``
+    (the GPU by default), a device operator by its ``to_dense``."""
+    if isinstance(A, Lazy):
+        A = A()
+    if isinstance(A, torch.Tensor):
+        return A
+    if sp.issparse(A):
+        A = A.toarray()
+    elif hasattr(A, "to_dense"):
+        return A.to_dense()
+    return to_device(np.asarray(A), device=resolve_device(device))
+
+
+def eigensystem(A, isherm=True, k=-1, sort=True, return_vecs=True,
+                autoblock=False, device=None, **kwargs):
+    """All eigenpairs of ``A`` (a dense ``eigh``, or ``eig`` for a
+    non-hermitian ``A``), sorted by their real part; ``k`` of them by
+    :func:`eigensystem_partial` when ``0 < k < n``; with ``autoblock``
+    by :func:`~quimb_torch.linalg.autoblock.eigensystem_autoblocked`."""
+    if autoblock:
+        from .autoblock import eigensystem_autoblocked
+
+        return eigensystem_autoblocked(A, sort=sort, isherm=isherm,
+                                       return_vecs=return_vecs,
+                                       device=device)
+    if k == -1 or (isinstance(k, int) and k >= np.shape(A)[0]):
+        A = _dense(A, device)
+        if isherm:
+            el, ev = torch.linalg.eigh(A)
+        else:
+            el, ev = torch.linalg.eig(A)
+        if sort:
+            order = torch.argsort(el.real)
+            el, ev = el[order], ev[:, order]
+        return (el, ev) if return_vecs else el
+    return eigensystem_partial(A, k, isherm=isherm, return_vecs=return_vecs,
+                               device=device, **kwargs)
+
+
+def eig(A, k=-1, **kwargs):
+    return eigensystem(A, isherm=False, k=k, **kwargs)
+
+
+def eigh(A, k=-1, **kwargs):
+    return eigensystem(A, isherm=True, k=k, **kwargs)
+
+
+def eigvals(A, k=-1, **kwargs):
+    return eigensystem(A, isherm=False, k=k, return_vecs=False, **kwargs)
+
+
+def eigvalsh(A, k=-1, **kwargs):
+    return eigensystem(A, isherm=True, k=k, return_vecs=False, **kwargs)
+
+
+def eigenvectors(A, isherm=True, k=-1, **kwargs):
+    return eigensystem(A, isherm=isherm, k=k, return_vecs=True, **kwargs)[1]
+
+
+eigvecs = eigenvectors
+
+
+def eigvecsh(A, k=-1, **kwargs):
+    return eigenvectors(A, isherm=True, k=k, **kwargs)
+
+
+def bound_spectrum(A, backend="auto", **kwargs):
+    """(lmin, lmax) of the hermitian ``A``."""
+    lmin = eigensystem_partial(A, k=1, which="SA", return_vecs=False,
+                               backend=backend, **kwargs)[0]
+    lmax = eigensystem_partial(A, k=1, which="LA", return_vecs=False,
+                               backend=backend, **kwargs)[0]
+    return lmin, lmax
+
+
+def eigh_window(A, w_0, k, w_sz=None, backend="AUTO", return_vecs=True,
+                offset_const=1 / 104, device=None, **kwargs):
+    """The ``k`` eigenpairs nearest the relative position ``w_0`` in [0,
+    1] of the spectrum (reference ``eigh_window`` base_linalg.py:282):
+    by a dense ``eigh`` for a dense operator, a sparse one of at most
+    :data:`AUTO_DENSE_CUTOFF` rows or ``backend="numpy"``; otherwise the
+    spectrum's bounds by Lanczos, then the folded spectrum at the
+    window's centre."""
+    n = np.shape(A)[0]
+    if _isdense(A) or (sp.issparse(A) and n <= AUTO_DENSE_CUTOFF) or \
+            backend.lower() == "numpy":
+        el, ev = torch.linalg.eigh(_dense(A, device))
+        lmin, lmax = el[0], el[-1]
+        wa = lmin + w_0 * (lmax - lmin)
+        idx = torch.argsort(torch.abs(el - wa))[:k]
+        idx = idx[torch.argsort(el[idx])]
+        return (el[idx], ev[:, idx]) if return_vecs else el[idx]
+    lmin, lmax = bound_spectrum(A, device=device, **kwargs)
+    sigma = float(lmin + w_0 * (lmax - lmin))
+    return eigensystem_partial(A, k, sigma=sigma, return_vecs=return_vecs,
+                               device=device, **kwargs)
+
+
+def eigvalsh_window(*args, **kwargs):
+    return eigh_window(*args, return_vecs=False, **kwargs)
+
+
+def eigvecsh_window(*args, **kwargs):
+    return eigh_window(*args, return_vecs=True, **kwargs)[1]
+
+
+def svd(A, return_vecs=True, device=None):
+    """The thin SVD (U, s, VH) of ``A``, or its singular values."""
+    A = _dense(A, device)
+    if return_vecs:
+        return torch.linalg.svd(A, full_matrices=False)
+    return torch.linalg.svdvals(A)
+
+
+def svds(A, k, ncv=None, return_vecs=True, backend="auto", device=None,
+         **kwargs):
+    """The ``k`` largest singular triples of ``A``, from its dense SVD as
+    in quimb_tpu."""
+    U, s, VH = svd(A, device=device)
+    if return_vecs:
+        return U[:, :k], s[:k], VH[:k]
+    return s[:k]
+
+
+def norm_fro(A):
+    return torch.linalg.norm(A.reshape(-1))
+
+
+def norm_trace(A, isherm=True):
+    if isherm:
+        return torch.sum(torch.abs(torch.linalg.eigvalsh(A)))
+    return torch.sum(torch.linalg.svdvals(A))
+
+
+def norm_2(A):
+    return torch.linalg.svdvals(A)[0]
+
+
+def norm(A, ntype=2, **kwargs):
+    """The spectral (2), Frobenius ('fro') or trace ('tr', 'nuc') norm of
+    the tensor ``A``."""
+    types = {"2": "2", 2: "2", "spectral": "2", "f": "fro", "fro": "fro",
+             "t": "tr", "trace": "tr", "tr": "tr", "nuc": "tr"}
+    A = _dense(A)
+    nt = types[ntype]
+    if nt == "2":
+        return norm_2(A)
+    if nt == "fro":
+        return norm_fro(A)
+    return norm_trace(A, **kwargs)
+
+
+def expm(A, herm=False, device=None):
+    """The matrix exponential of ``A``: by ``eigh`` when ``herm``, else
+    ``torch.linalg.matrix_exp`` (quimb_tpu's is JAX's Pade ``expm``)."""
+    A = _dense(A, device)
+    if herm:
+        el, ev = torch.linalg.eigh(A)
+        dt = torch.promote_types(ev.dtype, el.dtype)
+        return (ev.to(dt) * torch.exp(el).to(dt)) @ ev.to(dt).conj().T
+    return torch.linalg.matrix_exp(A)
+
+
+def sqrtm(A, herm=True, device=None):
+    """The matrix square root of ``A``: by ``eigh``, its negative
+    eigenvalues clipped to zero, when ``herm``; else scipy's ``sqrtm`` on
+    the host."""
+    A = _dense(A, device)
+    if herm:
+        el, ev = torch.linalg.eigh(A)
+        sq = torch.sqrt(torch.clip(el, min=0.0))
+        dt = torch.promote_types(ev.dtype, sq.dtype)
+        return (ev.to(dt) * sq.to(dt)) @ ev.to(dt).conj().T
+    import scipy.linalg as sla
+
+    return to_device(sla.sqrtm(to_host(A)), device=A.device)
+
+
+class IdentityLinearOperator:
+    """The identity (times ``factor``) as a lazy operator (reference
+    ``IdentityLinearOperator``)."""
+
+    def __init__(self, size, factor=1):
+        self.shape = (size, size)
+        self.factor = factor
+
+    def matvec(self, x):
+        return self.factor * x
+
+    def __matmul__(self, x):
+        return self.factor * x
+
+
+__all__ = [
+    "AUTO_DENSE_CUTOFF", "Lazy", "choose_backend", "eigensystem_partial",
+    "eigsh_device", "groundstate", "groundenergy", "expm_multiply",
+    "eigensystem", "eig", "eigh", "eigvals", "eigvalsh", "eigenvectors",
+    "eigvecs", "eigvecsh", "bound_spectrum", "eigh_window",
+    "eigvalsh_window", "eigvecsh_window", "svd", "svds", "norm_fro",
+    "norm_trace", "norm_2", "norm", "expm", "sqrtm",
+    "IdentityLinearOperator", "eigensystem_autoblocked", "compute_blocks",
+]
+
+from .autoblock import compute_blocks, eigensystem_autoblocked  # noqa: E402

@@ -1255,12 +1255,121 @@ class Circuit(CircuitBase):
 
 class CircuitDense(CircuitBase):
     """Dense statevector simulator (reference ``CircuitDense``
-    exact.py:2026): not ported yet."""
+    exact.py:2026): the gates applied eagerly to a (2**N,) tensor on
+    ``self.device``, the cross-check of the other simulators.
 
-    def __init__(self, *args, **kwargs):
+    A gate on the neighbouring qubits ``q .. q + m - 1``, in order, is one
+    product with the state viewed as (2**q, 2**m, rest): a broadcast
+    ``matmul`` (or, when fewer than :attr:`GEMM_REST` amplitudes follow the
+    gate's qubits, one GEMM with ``U kron I_rest``); any other gate is a
+    ``tensordot`` with the state viewed with one axis a gate qubit and one
+    a run of the qubits between them (quimb_tpu reshapes to one axis a
+    qubit, N axes, beyond what one CUDA copy takes at 28 qubits).
+    """
+
+    #: below this many trailing amplitudes a neighbouring gate is one GEMM
+    #: with ``U kron I`` rather than a batch of small products
+    GEMM_REST = 16
+
+    def _init_state(self, psi0):
+        if psi0.max_bond() == 1:
+            # a product state: the Kronecker product of its site vectors
+            vs = [psi0[psi0.site_tag(i)].data.reshape(-1)
+                  for i in range(psi0.L)]
+            psi = vs[0]
+            for v in vs[1:]:
+                psi = torch.kron(psi, v)
+        else:
+            psi = psi0.to_dense().reshape(-1)
+        return psi.to(device=self.device, dtype=self.dtype)
+
+    def _apply_array(self, U, where, tags=None, **opts):
+        n, nq = self.N, len(where)
+        U = U.to(device=self._psi.device, dtype=self._psi.dtype)
+        q0 = where[0]
+        if tuple(where) == tuple(range(q0, q0 + nq)):
+            d, rest = 2**nq, 2 ** (n - q0 - nq)
+            if rest < self.GEMM_REST:
+                M = torch.kron(U, torch.eye(rest, dtype=U.dtype,
+                                            device=U.device))
+                psi = self._psi.view(2**q0, d * rest) @ M.T
+            else:
+                psi = U.reshape(d, d) @ self._psi.view(2**q0, d, rest)
+            self._psi = psi.reshape(-1)
+            return
+        shape, axis_of, prev = [], {}, -1
+        for q in sorted(where):
+            shape.append(2 ** (q - prev - 1))
+            axis_of[q] = len(shape)
+            shape.append(2)
+            prev = q
+        shape.append(2 ** (n - prev - 1))
+        psi = torch.tensordot(U.reshape((2,) * (2 * nq)),
+                              self._psi.view(shape),
+                              dims=(list(range(nq, 2 * nq)),
+                                    [axis_of[q] for q in where]))
+        psi = torch.movedim(psi, list(range(nq)), [axis_of[q] for q in where])
+        self._psi = psi.reshape(-1)
+
+    @property
+    def psi(self):
+        return self._psi.reshape(-1, 1)
+
+    def to_dense(self, **kwargs):
+        return self._psi.reshape(-1, 1)
+
+    def amplitude(self, b, **kwargs):
+        """The amplitude <b|psi>, a Python complex."""
+        if isinstance(b, str):
+            b = tuple(int(x) for x in b)
+        idx = 0
+        for v in b:
+            idx = 2 * idx + int(v)
+        return complex(self._psi[idx].item())
+
+    def sample(self, C, seed=None, **kwargs):
+        """``C`` bitstrings drawn from |psi|^2 by
+        ``np.random.default_rng(seed).choice``, as quimb_tpu draws them:
+        the probabilities are copied to the host (2**N float64s)."""
+        p = np.clip(to_host(torch.abs(self._psi) ** 2), 0, None)
+        p /= p.sum()
+        for s in np.random.default_rng(seed).choice(p.size, size=C, p=p):
+            yield np.binary_repr(s, self.N)
+
+    def partial_trace(self, keep, **kwargs):
+        """The reduced density operator of the qubits ``keep``."""
+        from ...core import partial_trace
+
+        if isinstance(keep, numbers.Integral):
+            keep = (keep,)
+        return partial_trace(self.psi, (2,) * self.N, keep)
+
+    def local_expectation(self, G, where, **kwargs):
+        """tr(G rho) of the reduced state of the qubits ``where`` (sorted,
+        as the partial trace sorts them)."""
+        if isinstance(where, numbers.Integral):
+            where = (where,)
+        rho = self.partial_trace(where)
+        d = rho.shape[0]
+        G = to_device(G, device=rho.device, dtype=rho.dtype).reshape(d, d)
+        return torch.trace(G @ rho)
+
+    def get_psi(self):
+        """The dense state viewed as a ``Dense1D`` network (reference
+        ``CircuitDense.get_psi``)."""
+        from ..tn1d.core import Dense1D
+
+        return Dense1D(self._psi, device=self._psi.device)
+
+    def get_uni(self, transposed=False):
         raise NotImplementedError(
-            "CircuitDense is not ported to quimb_torch yet: ROADMAP item 16"
-        )
+            "CircuitDense contracts the state as it goes — the unitary "
+            "TN is not available")
+
+    def get_psi_reverse_lightcone(self, where, keep_psi0=False):
+        """The whole state: a light cone means nothing to a dense
+        state."""
+        return self.psi
 
 
 # ---------------------------------------------------------------------------

@@ -575,6 +575,38 @@ def ham_1d_XXZ(L=None, delta=None, jxy=1.0, S=1 / 2, cyclic=False,
                        **opts)
 
 
+def _mbl_builder(L, dh, j, seed, S, cyclic, dh_dist):
+    """The Heisenberg builder with random z-fields ``-h_i Z_i``, the fields
+    drawn from ``np.random.default_rng(seed)`` as quimb_tpu draws them:
+    uniform in [-dh, dh) for ``dh_dist`` 's', else normal of width dh."""
+    rng = np.random.default_rng(seed)
+    H = _ham_heis_builder(j, 0.0, S, cyclic)
+    if dh_dist in ("s", "flat", "uniform"):
+        hs = rng.uniform(-dh, dh, L)
+    else:
+        hs = rng.normal(0, dh, L)
+    for i in range(L):
+        H[i] = [(-hs[i], "Z")]
+    return H
+
+
+def MPO_ham_mbl(L, dh, j=1.0, seed=None, S=1 / 2, cyclic=False,
+                dh_dist="s", dh_dim=1, beta=None, **mpo_opts):
+    """The many-body-localised Heisenberg chain (random z-fields) as an
+    MPO (quimb_tpu's ``MPO_ham_mbl``, ``tn1d/builders.py:623``)."""
+    return _mbl_builder(L, dh, j, seed, S, cyclic, dh_dist).build_mpo(
+        L, **mpo_opts)
+
+
+def ham_1d_mbl(L, dh, j=1.0, seed=None, S=1 / 2, cyclic=False,
+               dh_dist="s", dh_dim=1, beta=None, **opts):
+    """The many-body-localised Heisenberg chain as a
+    :class:`~.tebd.LocalHam1D` (quimb_tpu's ``ham_1d_mbl``,
+    ``tn1d/builders.py:637``)."""
+    return _mbl_builder(L, dh, j, seed, S, cyclic, dh_dist).build_local_ham(
+        L, **opts)
+
+
 def _ham_bilinear_biquadratic_builder(theta, S=1 / 2, cyclic=False):
     """``cos(theta) S.S + sin(theta) (S.S)^2``, the square expanded into
     products of single-site operators."""
@@ -608,12 +640,13 @@ def ham_1d_bilinear_biquadratic(L=None, theta=0, S=1 / 2, cyclic=False,
 
 __all__ = [
     "MPO_ham_XXZ", "MPO_ham_XY", "MPO_ham_bilinear_biquadratic",
-    "MPO_ham_heis", "MPO_ham_ising", "MPO_identity", "MPO_identity_like",
+    "MPO_ham_heis", "MPO_ham_ising", "MPO_ham_mbl", "MPO_identity",
+    "MPO_identity_like",
     "MPO_product_operator", "MPO_rand", "MPO_rand_herm", "MPO_zeros",
     "MPO_zeros_like", "MPS_COPY", "MPS_computational_state",
     "MPS_ghz_state", "MPS_neel_state", "MPS_product_state",
     "MPS_rand_computational_state", "MPS_rand_state", "MPS_sampler",
     "MPS_w_state", "MPS_zero_state", "SpinHam1D",
     "ham_1d_bilinear_biquadratic", "ham_1d_heis", "ham_1d_ising",
-    "ham_1d_XXZ", "ham_1d_XY",
+    "ham_1d_mbl", "ham_1d_XXZ", "ham_1d_XY",
 ]

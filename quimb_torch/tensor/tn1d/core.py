@@ -31,7 +31,6 @@ from .. import array_ops as ar
 from ..core import (
     Tensor,
     TensorNetwork,
-    _deferred,
     bonds,
     rand_uuid,
     tags_to_oset,
@@ -1658,7 +1657,17 @@ def _mps_bipartite_schmidt_state(self, sz_a, get="ket", cur_orthog=None):
 
 def _mps_logneg_subsys(self, sysa, sysb, compress_opts=None,
                        approx_thresh=None, **kwargs):
-    raise _deferred(16, "MatrixProductState.logneg_subsys (calc.py)")
+    """The logarithmic negativity of two subsystems by the dense partial
+    transpose of their reduced density operator (quimb_tpu's dense route,
+    ``tn1d/core.py:1742``)."""
+    from ...calc import logneg
+
+    sysa, sysb = sorted(sysa), sorted(sysb)
+    keep = (*sysa, *sysb)
+    rho = self.partial_trace_to_dense_canonical(keep)
+    d = self.phys_dim()
+    return logneg(rho, dims=tuple(d for _ in keep),
+                  sysa=tuple(range(len(sysa))))
 
 
 def _mps_partial_trace_to_dense_canonical(self, keep, **contract_opts):

@@ -289,6 +289,18 @@ try:
     def progbar(it=None, ascii=True, **kwargs):
         return _tqdm(it, ascii=ascii, **kwargs)
 
+    class continuous_progbar(_tqdm):
+        """A progress bar towards a target value (an evolution's time)."""
+
+        def __init__(self, start, stop, total=100, **kwargs):
+            kwargs.setdefault("ascii", True)
+            super().__init__(total=total, unit="%", **kwargs)
+            self.start = start
+            self.range = stop - start
+
+        def cupdate(self, x):
+            self.update(int(100 * (x - self.start) / self.range) - self.n)
+
 except ImportError:  # pragma: no cover
 
     class progbar:
@@ -312,4 +324,11 @@ except ImportError:  # pragma: no cover
             self.desc = desc
 
         def close(self):
+            pass
+
+    class continuous_progbar(progbar):
+        def __init__(self, start, stop, total=100, **kwargs):
+            super().__init__(total=total, **kwargs)
+
+        def cupdate(self, x):
             pass

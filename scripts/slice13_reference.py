@@ -33,7 +33,8 @@ Five parts, each written under its name into
   (``HTN_random_ksat(3, 1000, alpha=3.0, seed=7)``) by ``contract_hv1bp``:
   each estimate's log10, its iterations and seconds.
 - ``kagome``: phase 21(a)'s protocol (``scripts/slice12_reference.py``'s
-  ``kagome``) at two steps a tau (five until phases 24-25 were added) with
+  ``kagome``) at one step a tau (five until phases 24-25 were added, two
+  until phases 26-28 were) with
   the cluster energy's simple gauging capped at 20 iterations: ``gauge_all_simple(max_iterations=20)``, then
   ``compute_local_expectation(method="cluster", gauges=...)``.
 
@@ -74,7 +75,7 @@ PEPS_L, PEPS_D, PEPS_NITS = 16, 3, 30
 BP_MAX_BOND = 2
 HYPER_H, HYPER_L, HYPER_L_D1 = 0.1, 8, 4
 KSAT = dict(k=3, num_variables=1000, alpha=3.0, seed=7)
-KAGOME_L, KAGOME_D, KAGOME_NITS, KAGOME_TAUS = 6, 4, 2, (0.3, 0.1, 0.03)
+KAGOME_L, KAGOME_D, KAGOME_NITS, KAGOME_TAUS = 6, 4, 1, (0.3, 0.1, 0.03)
 KAGOME_GAUGE_ITERATIONS = 20
 PARTS = ("ising3d", "peps3d", "peps16_bp", "hyper", "kagome")
 

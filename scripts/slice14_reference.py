@@ -10,8 +10,8 @@ Four parts, each written under its name into
   site by site on the host (:func:`start_arrays`). The loss is the
   Rayleigh quotient <psi|H|psi> / <psi|psi> of ``MPO_ham_heis(128)``,
   contracted site by site in the chi^3 order of :func:`rayleigh_quotient`.
-  ``TNOptimizer`` runs 10 L-BFGS-B iterations, then, from the start arrays
-  again, 10 Adam steps at learning rate 0.01: each loss evaluation is
+  ``TNOptimizer`` runs 3 L-BFGS-B iterations, then, from the start arrays
+  again, 3 Adam steps at learning rate 0.01: each loss evaluation is
   recorded.
 - ``cluster``: phase 24(c). ``ClusterUpdateGen`` (cluster_distance 1) on
   phase 21(a)'s kagome model (the open 6 x 6 lattice, 108 sites, D=4,
@@ -53,7 +53,7 @@ OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 PARTS = ("optimizer", "cluster", "compress", "spectral")
 
 OPT_L, OPT_CHI, OPT_SEED = 128, 256, 42
-OPT_LBFGS_ITS, OPT_ADAM_STEPS, OPT_ADAM_LR = 10, 10, 0.01
+OPT_LBFGS_ITS, OPT_ADAM_STEPS, OPT_ADAM_LR = 3, 3, 0.01
 KAGOME_L, KAGOME_D, CLUSTER_TAU, CLUSTER_STEPS = 6, 4, 0.3, 4
 KAGOME_GAUGE_ITERATIONS = 20
 REHEARSAL_L, REHEARSAL_CHI = 32, 64

@@ -197,13 +197,17 @@ def test_complex64_amplitude():
 
 
 def test_later_work_names_its_item():
-    t, _ = _brickwork(4, 2)
+    t, j = _brickwork(4, 2)
     with pytest.raises(NotImplementedError, match="item 18"):
         t.amplitude("0000", mesh=object())
     with pytest.raises(NotImplementedError, match="item 18"):
         list(t.sample(2, mesh=object()))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ttn.CircuitDense(4)
+    # CircuitDense is ported: the same gates give quimb_tpu's state
+    d = ttn.CircuitDense(4, device="cpu")
+    d.apply_gates(t.gates)
+    jd = jtn.CircuitDense(4)
+    jd.apply_gates(j.gates)
+    assert _close(_np(d.psi), np.asarray(jd.psi))
 
 
 def test_53_qubit_amp0_matches_refbase_and_quimb_tpu():

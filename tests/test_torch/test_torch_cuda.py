@@ -975,3 +975,87 @@ def test_linear_operator_and_slq_on_card_match_cpu(cuda):
         np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-12)
     assert out["cuda"][2] == pytest.approx(out["cpu"][2], rel=1e-5)
     assert abs(out["cuda"][3] - out["cpu"][3]) <= 1e-10
+
+
+@pytest.mark.parametrize("symmetry,sector,n", [
+    ("U1", 6, 12), ("U1U1", (3, 2), 12), ("Z2", 1, 10), (None, None, 9)])
+def test_coupled_ham_on_card_matches_cpu(cuda, symmetry, sector, n):
+    """The matrix-free sector operator: a matvec, a block of columns and
+    the ground energy on the card give the CPU's (1e-12, 1e-10)."""
+    from quimb_torch.operator import HilbertSpace, heisenberg_from_edges
+
+    edges = [(i, (i + 1) % n) for i in range(n)] + [(0, n // 2)]
+    out = {}
+    for dev in ("cpu", cuda):
+        hs = HilbertSpace(n, symmetry=symmetry, sector=sector)
+        b = heisenberg_from_edges(edges, j=(1.0, 1.0, 0.7), b=0.1,
+                                  hilbert_space=hs)
+        op = b.build_coupled_ham(dtype="float64", device=dev)
+        assert op.configs.device.type == torch.device(dev).type
+        X = torch.as_tensor(np.random.default_rng(1).standard_normal(
+            (op.shape[0], 3)), device=dev)
+        out[str(dev)] = ((op @ X[:, 0]).cpu().numpy(),
+                         (op @ X).cpu().numpy(),
+                         float(quimb_torch.groundenergy(op)))
+    for a, b in zip(out["cuda"][:2], out["cpu"][:2]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-12)
+    assert out["cuda"][2] == pytest.approx(out["cpu"][2], abs=1e-10)
+
+
+def test_circuit_dense_on_card_matches_cpu(cuda):
+    """A 14-qubit brickwork with gates on distant, reversed and three
+    qubits: the card's dense state, samples and local expectation give
+    the CPU's."""
+    out = {}
+    for dev in ("cpu", cuda):
+        lazy = quimb_torch.circ_ansatz_1D_brickwork(14, 4, seed=2,
+                                                    device="cpu")
+        c = quimb_torch.CircuitDense(14, device=dev)
+        c.apply_gates(lazy.gates)
+        for g in (("CNOT", 9, 2), ("CCNOT", 6, 1, 13), ("SWAP", 13, 0)):
+            c.apply_gate(*g)
+        zz = np.kron(np.diag([1.0, -1.0]), np.diag([1.0, -1.0]))
+        out[str(dev)] = (c.psi.cpu().numpy(), list(c.sample(5, seed=4)),
+                         complex(c.local_expectation(zz, (6, 7))))
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=0,
+                               atol=1e-12)
+    assert out["cuda"][1] == out["cpu"][1]
+    assert out["cuda"][2] == pytest.approx(out["cpu"][2], abs=1e-12)
+
+
+def test_matrix_half_on_card_matches_cpu(cuda):
+    """calc's entropies, negativity and concurrence of a 10-qubit ground
+    state, and Evolution by RK45 (a ket, a Lindblad density operator) and
+    by solve on the card give the CPU's: the same host step control takes
+    the same steps."""
+    from quimb_torch import calc
+    from quimb_torch.core import dop, ikron, ptr
+    from quimb_torch.gen.operators import pauli
+
+    n, dims = 10, (2,) * 10
+    out = {}
+    for dev in ("cpu", cuda):
+        H = quimb_torch.ham_heis(n, sparse=True)
+        psi = quimb_torch.groundstate(H, tol=0.0, restarts=15, device=dev)
+        vals = [calc.entropy_subsys(psi, dims, range(5)),
+                calc.mutinf_subsys(psi, dims, (0, 1), (5, 6)),
+                calc.logneg_subsys(psi, dims, (2, 3), (4, 5, 6)),
+                calc.concurrence(ptr(psi, dims, (4, 5)))]
+        p0 = quimb_torch.computational_state("01" * 5, device=dev)
+        evo = quimb_torch.Evolution(p0, H, method="integrate")
+        evo.update_to(0.5)
+        Hd = quimb_torch.ham_heis(6, device=dev)
+        ls = [ikron(pauli("Z", device=dev), (2,) * 6, i) for i in range(6)]
+        r0 = dop(quimb_torch.computational_state("010101", device=dev))
+        lind = quimb_torch.Evolution(r0, (Hd, ls, 0.1), method="integrate")
+        lind.update_to(0.5)
+        solve = quimb_torch.Evolution(r0, Hd, method="solve")
+        solve.update_to(0.5)
+        out[str(dev)] = (vals, evo.pt.cpu().numpy(), evo.steps,
+                         lind.pt.cpu().numpy(), solve.pt.cpu().numpy())
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=0,
+                               atol=1e-10)
+    assert out["cuda"][2] == out["cpu"][2]
+    for k in (1, 3, 4):
+        np.testing.assert_allclose(out["cuda"][k], out["cpu"][k], rtol=0,
+                                   atol=1e-10)

@@ -465,9 +465,15 @@ def test_evolution_routes_and_at_times():
     assert c64.pt.dtype == torch.complex64
     # float32 Lanczos on 32 vectors
     np.testing.assert_allclose(c64.pt.numpy(), want[0], rtol=0, atol=1e-5)
+    # the integrate and solve methods are ported: quimb_tpu's values
     for method in ("integrate", "solve"):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            quimb_torch.Evolution(p0, H, method=method)
+        jm = jevo.Evolution(jstates.computational_state("01" * (n // 2)),
+                            jops.ham_heis(n, sparse=True), method=method)
+        tm = quimb_torch.Evolution(p0, H, method=method)
+        for got, want_ in zip(tm.at_times(ts), jm.at_times(ts)):
+            # RK45 at quimb_tpu's rtol 1e-8 and atol 1e-10, the same steps
+            np.testing.assert_allclose(got.numpy(), np.asarray(want_),
+                                       rtol=0, atol=1e-10)
 
 
 def test_evolution_of_quimb_tpu_operator():

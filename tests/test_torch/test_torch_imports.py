@@ -60,6 +60,9 @@ def test_import_never_imports_jax():
         "import quimb_torch.experimental.cluster_update\n"
         "import quimb_torch.linalg.approx_spectral\n"
         "import quimb_torch.linalg.rand_linalg\n"
+        "import quimb_torch.linalg.autoblock, quimb_torch.gates\n"
+        "import quimb_torch.operator, quimb_torch.operator.configdevice\n"
+        "import quimb_torch.operator.pepobuilder\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'optax' not in sys.modules, 'optax imported'\n"
         "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
@@ -270,6 +273,33 @@ def test_3d_layer_and_bp_never_import_jax_when_used():
         "s.gauge_all_belief_propagation()\n"
         "qt.circ_ansatz_1D_brickwork(4, 2, seed=1, device='cpu').amplitude("
         "'0000')\n"
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
+    )
+    assert res.returncode == 0, res.stderr
+
+
+def test_matrix_half_never_imports_jax_when_used():
+    """A sector operator solved by Lanczos, calc's entropy, an RK45
+    evolution and a dense circuit load neither jax nor quimb_tpu."""
+    res = _run(
+        "import sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "import quimb_torch as qt\n"
+        "from quimb_torch import calc, operator\n"
+        "hs = operator.HilbertSpace(8, symmetry='U1', sector=4)\n"
+        "b = operator.heisenberg_from_edges([(i, (i + 1) % 8) for i in "
+        "range(8)], hilbert_space=hs)\n"
+        "op = b.build_coupled_ham(device='cpu')\n"
+        "psi = qt.groundstate(op)\n"
+        "H = qt.ham_heis(6, sparse=True)\n"
+        "g = qt.groundstate(H, device='cpu')\n"
+        "calc.entropy_subsys(g, (2,) * 6, (0, 1, 2))\n"
+        "e = qt.Evolution(qt.computational_state('010101', device='cpu'), "
+        "H, method='integrate')\n"
+        "e.update_to(0.1)\n"
+        "c = qt.CircuitDense(4, device='cpu')\n"
+        "c.apply_gate('H', 0).apply_gate('CNOT', 0, 3)\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
     )

@@ -476,8 +476,11 @@ def test_mps_helpers():
     G = torch.as_tensor(G + G.T)
     assert _c(t.local_expectation_canonical(G, (2, 3))) == pytest.approx(
         _c(j.local_expectation_canonical(_n(G), (2, 3))), abs=1e-12)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        t.logneg_subsys((0,), (1,))
+    # logneg_subsys is ported: the dense partial transpose of the reduced
+    # state, as quimb_tpu's
+    for sa, sb in (((0,), (1,)), ((1, 2), (3,)), ((0,), (3,))):
+        assert t.logneg_subsys(sa, sb) == pytest.approx(
+            j.logneg_subsys(sa, sb), abs=1e-12)
     cyc = tc.MatrixProductState.from_fill_fn(
         lambda s: torch.ones(s, dtype=torch.float64), 4, 2, cyclic=True)
     assert cyc.cyclic
