@@ -12,10 +12,9 @@ Port of ``quimb_tpu/evo.py`` (reference ``quimb/evo.py``: ``Evolution``
   integrates the Lindblad equation.
 - ``'solve'``: one dense ``eigh``; each update is a phase rotation in the
   eigenbasis.
-- ``'expm'``: Krylov ``exp(-i H dt) v`` (Lanczos with complex time for a
-  hermitian operator, Arnoldi for one given only by ``@``). A density
-  operator evolves by Arnoldi on the commutator ``rho -> -i [H, rho]``
-  (quimb_tpu's ``expm`` takes kets only).
+- ``'expm'``: Krylov ``exp(-i H dt) v`` of a ket (Lanczos with complex
+  time for a hermitian operator, Arnoldi for one given only by ``@``).
+  Density operators evolve by ``'integrate'`` or ``'solve'``.
 
 The state stays on its device; host data goes to the GPU.
 """
@@ -212,19 +211,13 @@ class Evolution:
         elif method == "integrate":
             self._setup_integrator(lindblad)
         elif method == "expm":
-            if self._timedep or lindblad:
-                raise TypeError("expm method doesn't support time-dependent "
-                                "H or the Lindblad equation")
+            if self._timedep or lindblad or self._isdop:
+                raise TypeError("expm method evolves a ket under a "
+                                "time-independent H")
             mv = _matvec_of(ham, dev)
             self._hermitian = sp.issparse(ham) or isinstance(
                 ham, (SparseHam, LocalTermsHam, torch.Tensor, np.ndarray))
-            if self._isdop:
-                # rho -> -i [H, rho], with rho H = (H rho^dagger)^dagger for
-                # a hermitian H
-                self._mv = lambda X: -1j * (mv(X) - dag(mv(dag(X))))
-                self._hermitian = False
-            else:
-                self._mv = mv if self._hermitian else (lambda x: -1j * mv(x))
+            self._mv = mv if self._hermitian else (lambda x: -1j * mv(x))
             self._update_method = self._update_to_expm
         else:
             raise ValueError(f"unknown method {method}")
@@ -280,9 +273,8 @@ class Evolution:
     def _update_to_expm(self, t):
         dt = t - self._t
         ncv = self._expm_opts.get("ncv", 32)
-        v = self._pt if self._isdop else self._pt.reshape(-1)
         out = expm_multiply_krylov(
-            self._mv, v, t=-1j * dt if self._hermitian else dt, ncv=ncv,
+            self._mv, self._pt.reshape(-1), t=-1j * dt if self._hermitian else dt, ncv=ncv,
             hermitian=self._hermitian)
         self._pt = out.reshape(self._pt.shape)
         self._t = t

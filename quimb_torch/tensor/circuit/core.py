@@ -1258,18 +1258,11 @@ class CircuitDense(CircuitBase):
     exact.py:2026): the gates applied eagerly to a (2**N,) tensor on
     ``self.device``, the cross-check of the other simulators.
 
-    A gate on the neighbouring qubits ``q .. q + m - 1``, in order, is one
-    product with the state viewed as (2**q, 2**m, rest): a broadcast
-    ``matmul`` (or, when fewer than :attr:`GEMM_REST` amplitudes follow the
-    gate's qubits, one GEMM with ``U kron I_rest``); any other gate is a
-    ``tensordot`` with the state viewed with one axis a gate qubit and one
-    a run of the qubits between them (quimb_tpu reshapes to one axis a
-    qubit, N axes, beyond what one CUDA copy takes at 28 qubits).
+    A gate is one ``tensordot`` with the state viewed with one axis a gate
+    qubit and one a run of the qubits between them (quimb_tpu reshapes to
+    one axis a qubit, N axes, beyond what one CUDA copy takes at 28
+    qubits).
     """
-
-    #: below this many trailing amplitudes a neighbouring gate is one GEMM
-    #: with ``U kron I`` rather than a batch of small products
-    GEMM_REST = 16
 
     def _init_state(self, psi0):
         if psi0.max_bond() == 1:
@@ -1286,17 +1279,6 @@ class CircuitDense(CircuitBase):
     def _apply_array(self, U, where, tags=None, **opts):
         n, nq = self.N, len(where)
         U = U.to(device=self._psi.device, dtype=self._psi.dtype)
-        q0 = where[0]
-        if tuple(where) == tuple(range(q0, q0 + nq)):
-            d, rest = 2**nq, 2 ** (n - q0 - nq)
-            if rest < self.GEMM_REST:
-                M = torch.kron(U, torch.eye(rest, dtype=U.dtype,
-                                            device=U.device))
-                psi = self._psi.view(2**q0, d * rest) @ M.T
-            else:
-                psi = U.reshape(d, d) @ self._psi.view(2**q0, d, rest)
-            self._psi = psi.reshape(-1)
-            return
         shape, axis_of, prev = [], {}, -1
         for q in sorted(where):
             shape.append(2 ** (q - prev - 1))
