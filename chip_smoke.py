@@ -303,8 +303,27 @@ failure:
    ``circ_ansatz_1D_brickwork(28, 8, seed=7)`` applied eagerly, the norm
    within 1e-12 of 1, the amplitudes of ``sample(4, seed=42)``'s strings
    and <ZZ> on qubits 13, 14 within 1e-10 of the lazy ``Circuit``'s; the
-   seconds a gate, the draw's seconds and the peak allocation. No phase
-   from 17 on launches a sandwich kernel.
+   seconds a gate, the draw's seconds and the peak allocation;
+29. (last) variational Monte Carlo, CTMRG and marginals, held to quimb_tpu's
+   float64 values from ``scripts/slice16_reference.py``: (a) ``TNVMC`` on
+   the 6 x 6 open-boundary Heisenberg PEPS at D=4 (10,368 parameters, a
+   SimpleUpdate state of quimb_tpu's) with 128 exchange chains: for 128
+   fixed S^z = 0 configurations the amplitudes (also against the port's
+   own ``isel`` + ``contract`` at 1e-12), local energies, ``O @ v``, one
+   SR update's energy and ``|delta|`` within 1e-10 relative of quimb_tpu's,
+   and ``delta`` within 10 cond(S) eps (its solve's forward error); (b) the
+   exchange sampler's estimate of the state's energy after 2,000, 10,000
+   and 20,000 proposal steps a chain (replays of one CUDA graph), the last
+   within max(5 sigma, 3 %) of
+   quimb_tpu's boundary contraction at chi = 64, then three SR
+   steps, each timed and broken into sampling, local energies, gradients
+   and the solve, with host reads, the peak allocation and the busy share
+   of a step, none rising more than 3 sigma above the start; (c)
+   ``ctmrg_partition_function`` of the 2D Ising model at beta_c, L = 256,
+   ``max_bond`` 32: log10 Z within 1e-10 relative of quimb_tpu's; (d)
+   ``compute_all_marginals_via_autodiff`` of every bond of phase 22's
+   3 x 3 x 3 Ising network against ``..._via_slicing`` within 1e-10. No
+   phase from 17 on launches a sandwich kernel.
 
 The line before the last is the kernels' JSON summary, one entry per
 kernel with its launches on its paths (DMRG2 and ParallelDMRG for
@@ -317,7 +336,7 @@ and their products run as batched ``matmul``, QR and SVD on the card;
 nor do complex DMRG, the rings, HOTRG, CTMRG, FullUpdate, JacobiDMRG,
 the arbitrary-geometry layer, the 3D layer, belief propagation, the
 optimizer, the fits, the cluster update, the spectral estimates, the
-sector operator, calc, Evolution's RK45 and CircuitDense (quimb_tpu runs
+sector operator, calc, Evolution's RK45, CircuitDense and VMC (quimb_tpu runs
 them on its einsum, gathers, QR, SVD, Cholesky and eigh; HV1BP's
 batched updates are ``torch.einsum`` over stacked tensors, as quimb_tpu's
 are ``jax.vmap`` of einsums). The last line is ``{"ok": true, "device": {...}}``.
@@ -4267,6 +4286,384 @@ def run_circuit_dense():
           flush=True)
 
 
+# -- phase 29: VMC on a 6 x 6 PEPS, CTMRG, marginals -------------------------
+
+# quimb_tpu's values of phase 29, from scripts/slice16_reference.py
+SLICE16_REF = "scripts/slice16_reference.json"
+# TNVMC on the 6 x 6 open-boundary Heisenberg PEPS at D=4 in float64, with
+# 128 chains: the fixed-configuration values against quimb_tpu's
+# (relative to the largest magnitude: float64 rounding through a
+# 36-tensor contraction and a 10,368-unknown solve) and the amplitudes
+# against the port's own isel + contract. The SR update's delta within
+# VMC_SOLVE_FACTOR times its solve's forward-error bound (cond(S) * eps)
+# of quimb_tpu's.
+VMC_TOL, VMC_ISEL_TOL, VMC_SOLVE_FACTOR = 1e-10, 1e-12, 10
+# The Monte Carlo estimates. Each sampler runs 128 chains, half from one
+# kind of start and half from another; after its burn-in (proposal steps
+# a chain) it takes VMC_SAMPLES samples a chain, one sweep (36 steps)
+# apart. An estimate's error is the spread of the chains' own means over
+# sqrt(chains): the chains are independent, so it allows for the
+# correlation within a chain. Single-flip Metropolis chains (random and
+# Neel starts) reach every magnetisation: the two halves agree within
+# VMC_SIGMAS combined errors and their estimate lies within max(5 sigma,
+# 3 %) of the state's energy by quimb_tpu's boundary contraction at
+# chi = 64. Their samples at S^z = 0 estimate the energy of the state's
+# S^z = 0 part (a ratio estimate over the chains), which is what the
+# exchange chains sample: those start half from Neel states and half from
+# the single-flip chains' last S^z = 0 configurations, their halves agree
+# and their estimate lies within VMC_SIGMAS combined errors of the
+# single-flip chains' S^z = 0 part. The exchange moves swap neighbours in
+# the sites' linear order and relax slowly (on an H100 chains from random
+# half-filled starts read -17.77 and -18.76 after 20,000 and 100,000
+# steps, Neel starts -19.08 and -18.75), hence these starts. Then
+# VMC_STEPS SR steps on the exchange chains, none more than 3 sigma above
+# their estimate.
+VMC_SIGMAS, VMC_REL, VMC_SAMPLES = 5, 0.03, 64
+VMC_FLIP_BURN, VMC_EXCHANGE_BURN = 5000, 30000
+VMC_RISE_SIGMAS, VMC_STEPS = 3, 3
+# translationally invariant CTMRG of the 2D Ising model at beta_c; log10 Z
+# against quimb_tpu's, relative
+CTMRG_TOL = 1e-10
+# the marginals of every bond of phase 22's exact 3 x 3 x 3 Ising network,
+# by one gradient against one contraction per (bond, value)
+MARG_L, MARG_TOL = 3, 1e-10
+
+
+def _slice16_reference(part):
+    return json.loads(Path(SLICE16_REF).read_text())[part]
+
+
+def _vmc_state(ref):
+    """The reference's start PEPS on the card, float64, its Heisenberg
+    builder and a TNVMC with 128 exchange chains."""
+    from quimb_torch.experimental import ExchangeSampler, TNVMC
+    from quimb_torch.operator import heisenberg_from_edges
+
+    Lx, Ly = ref["Lx"], ref["Ly"]
+    arrays = [torch.tensor(a, dtype=torch.float64, device="cuda").reshape(sh)
+              for a, sh in zip(ref["arrays"], ref["shapes"])]
+    psi = quimb_torch.PEPS([[arrays[i * Ly + j] for j in range(Ly)]
+                            for i in range(Lx)], shape="urdlp")
+    edges = []
+    for i in range(Lx):
+        for j in range(Ly):
+            if i + 1 < Lx:
+                edges.append((i * Ly + j, (i + 1) * Ly + j))
+            if j + 1 < Ly:
+                edges.append((i * Ly + j, i * Ly + j + 1))
+    H = heisenberg_from_edges(edges)
+    n, nchains = Lx * Ly, ref["nconf"]
+    vmc = TNVMC(psi, H, sampler=ExchangeSampler(n, nchains=nchains,
+                                                seed=SEED),
+                nchains=nchains, learning_rate=0.05, sr_damping=1e-3)
+    return psi, vmc
+
+
+def _neel_starts(Lx, Ly, count):
+    """``count`` chains' starts: the two Neel states of the lattice, in
+    turn."""
+    neel = np.array([(i + j) % 2 for i in range(Lx) for j in range(Ly)])
+    return np.stack([neel, 1 - neel] * (count // 2))
+
+
+def _rel_max(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+def _vmc_fixed(psi, vmc, ref):
+    """Phase 29(a): the fixed-configuration values against quimb_tpu's,
+    each stage timed on this batch."""
+    configs = torch.tensor(ref["configs"], dtype=torch.int64, device="cuda")
+    params = vmc.params
+    # warm-up: each stage's first call finds its contraction path
+    vmc._grad_logs(params, configs)
+    vmc._local_energies(params, configs)
+    amps, t_amp = _timed(lambda: vmc._log_amp_batch(params, configs))
+    e_loc, t_le = _timed(lambda: vmc._local_energies(params, configs))
+    O, t_grad = _timed(lambda: vmc._grad_logs(params, configs))
+    v = np.random.default_rng(ref["seeds"]["v"]).standard_normal(
+        ref["nparams"])
+    vt = torch.tensor(v, device="cuda")
+    w = torch.ones(configs.shape[0], dtype=torch.float64, device="cuda")
+    (new, e_mean, e_err), t_upd = _timed(lambda: vmc._update(params,
+                                                              configs, w))
+    delta = torch.cat([(p - q).reshape(-1) for p, q in zip(params, new)]
+                      ) / vmc.learning_rate
+    sites = list(psi.sites)
+    host_configs = ref["configs"]
+    iamps, t_isel = _timed(lambda: [complex(psi.isel({
+        psi.site_ind(s): int(c[k]) for k, s in enumerate(sites)}).contract(
+            ...)).real for c in host_configs])
+    errs = {
+        "amplitudes": _rel_max(to_host(amps), ref["amps"]),
+        "local energies": _rel_max(to_host(e_loc), ref["e_loc"]),
+        "O @ v": _rel_max(to_host(O @ vt), ref["O_v"]),
+        "|delta|": abs(float(torch.linalg.norm(delta)) - ref["delta_norm"])
+        / ref["delta_norm"],
+        "step energy": abs(float(e_mean) - ref["step_energy"][0])
+        / abs(ref["step_energy"][0]),
+    }
+    # delta solves S delta = F with S's condition number near 1e8: two
+    # float64 solves agree to about cond * eps, so delta itself is held to
+    # VMC_SOLVE_FACTOR * cond * eps (delta . v is printed: it cancels to
+    # 2e-4 of |delta| |v|)
+    d_ref = torch.tensor(ref["delta"], dtype=torch.float64, device="cuda")
+    d_err = float(torch.linalg.norm(delta - d_ref) / torch.linalg.norm(d_ref))
+    d_bound = VMC_SOLVE_FACTOR * ref["S_cond"] * 2.0 ** -52
+    dv = float(delta @ vt)
+    isel_err = _rel_max(to_host(amps), iamps)
+    print(f"TNVMC 6x6 D=4 PEPS, {ref['nparams']} parameters, "
+          f"{configs.shape[0]} fixed S^z=0 configurations: amplitudes "
+          f"{t_amp * 1e3:.2f} ms, local energies {t_le * 1e3:.2f} ms "
+          f"({vmc._flip_bits.shape[0]} flip masks in one batch), O "
+          f"{t_grad * 1e3:.2f} ms (one backward pass), the SR update "
+          f"{t_upd * 1e3:.2f} ms; against quimb_tpu's (relative, bound "
+          f"{VMC_TOL:.0e}): "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + f"; delta against quimb_tpu's {d_err:.3e} (bound {d_bound:.3e}: "
+          f"S's condition number {ref['S_cond']:.4e}), delta . v {dv!r}, "
+          f"quimb_tpu's {ref['delta_v']!r}; amplitudes against "
+          f"{len(host_configs)} isel + contract ({t_isel:.2f} s): "
+          f"{isel_err:.3e} (bound {VMC_ISEL_TOL:.0e})", flush=True)
+    if not (max(errs.values()) <= VMC_TOL and isel_err <= VMC_ISEL_TOL
+            and d_err <= d_bound):
+        raise AssertionError("TNVMC's fixed-configuration values miss "
+                             "quimb_tpu's")
+
+
+def _vmc_chains(vmc, burn):
+    """``burn`` proposal steps, then VMC_SAMPLES samples a chain one sweep
+    apart: the local energies (samples, chains) and the configurations
+    (samples, chains, sites), on the host, with the seconds of each."""
+    _, t_burn = _timed(lambda: vmc._sample_batch(vmc.params, burn))
+
+    def draw():
+        es, cs = [], []
+        for _ in range(VMC_SAMPLES):
+            c = vmc._sample_batch(vmc.params, vmc.sweeps_per_sample)
+            es.append(vmc._local_energies(vmc.params, c))
+            cs.append(c)
+        return to_host(torch.stack(es)), to_host(torch.stack(cs))
+
+    (e_loc, configs), t_draw = _timed(draw)
+    return e_loc, configs, t_burn, t_draw
+
+
+def _chain_mean(e_loc):
+    """The mean over chains of each chain's mean, and its error."""
+    means = e_loc.mean(axis=0)
+    return float(means.mean()), float(means.std(ddof=1)
+                                      / math.sqrt(means.size))
+
+
+def _sector_part(e_loc, configs, n_up):
+    """The ratio estimate of the energy of the samples with ``n_up`` spins
+    up, its error over the chains (the delta method) and their count."""
+    ins = configs.sum(axis=2) == n_up
+    count, total = ins.sum(axis=0), (e_loc * ins).sum(axis=0)
+    r = float(total.sum() / count.sum())
+    nc = count.size
+    se = math.sqrt(float(((total - r * count) ** 2).sum())
+                   / (nc * (nc - 1))) / float(count.mean())
+    return r, se, int(count.sum())
+
+
+def _halves(e_loc, kinds):
+    """The estimate of each half of the chains and of all, with the
+    distance between the halves over their combined error."""
+    h = e_loc.shape[1] // 2
+    (a, sa), (b, sb) = _chain_mean(e_loc[:, :h]), _chain_mean(e_loc[:, h:])
+    e, se = _chain_mean(e_loc)
+    z = abs(a - b) / math.hypot(sa, sb)
+    text = (f"{kinds[0]} starts {a!r} +- {sa:.4f}, {kinds[1]} starts {b!r} "
+            f"+- {sb:.4f} ({z:.2f} combined errors apart, bound "
+            f"{VMC_SIGMAS}); all {e!r} +- {se:.4f}")
+    return e, se, z, text
+
+
+def _vmc_estimates(vmc, ref, e_exact):
+    """Phase 29(b)'s estimates: the single-flip chains against the state's
+    energy, their S^z = 0 part against the exchange chains. Leaves ``vmc``
+    on its exchange chains, burnt in; returns their estimate."""
+    from quimb_torch.experimental import MetropolisHastingsSampler, TNVMC
+
+    Lx, Ly, nchains = ref["Lx"], ref["Ly"], vmc.nchains
+    n, half = Lx * Ly, nchains // 2
+    rng = np.random.default_rng(SEED)
+    starts = np.concatenate([rng.integers(0, 2, (half, n)),
+                             _neel_starts(Lx, Ly, nchains - half)])
+    flip = TNVMC(vmc.psi, vmc.ham, nchains=nchains,
+                 sampler=MetropolisHastingsSampler(
+                     n, nchains=nchains, initial=starts, seed=SEED))
+    e_loc, configs, t_burn, t_draw = _vmc_chains(flip, VMC_FLIP_BURN)
+    e_f, se_f, z_f, text = _halves(e_loc, ("random", "Neel"))
+    bound = max(VMC_SIGMAS * se_f, VMC_REL * abs(e_exact))
+    r, se_r, count = _sector_part(e_loc, configs, n // 2)
+    nup = configs.sum(axis=2)
+    print(f"TNVMC single-flip chains, {nchains}, {VMC_FLIP_BURN} proposal "
+          f"steps ({t_burn:.3f} s) and {VMC_SAMPLES} samples a chain "
+          f"({t_draw:.3f} s): {text}; quimb_tpu's boundary contraction "
+          f"{e_exact!r} (chi 64; chi 32 {ref['energy']['32']!r}), distance "
+          f"{abs(e_f - e_exact):.4f} (bound {bound:.4f}); n_up "
+          f"{nup.mean():.3f} +- {nup.std():.3f}, S^z=0 part {r!r} +- "
+          f"{se_r:.4f} ({count} samples)", flush=True)
+    if not (z_f <= VMC_SIGMAS and abs(e_f - e_exact) <= bound):
+        raise AssertionError("the single-flip estimate misses the state's "
+                             "energy, or its halves disagree")
+    # each chain's last S^z = 0 configuration: starts from the state's own
+    # S^z = 0 distribution
+    ins = nup == n // 2
+    last = ins.shape[0] - 1 - np.argmax(ins[::-1], axis=0)
+    eq = configs[last, np.arange(nchains)]
+    if not ins.any(axis=0).all():
+        raise AssertionError("a single-flip chain never reached S^z = 0")
+    vmc.sampler.configs = torch.as_tensor(np.concatenate([
+        _neel_starts(Lx, Ly, half), eq[:nchains - half]]))
+    e_loc, configs, t_burn, t_draw = _vmc_chains(vmc, VMC_EXCHANGE_BURN)
+    e_x, se_x, z_x, text = _halves(e_loc, ("Neel", "S^z=0 equilibrium"))
+    zr = abs(e_x - r) / math.hypot(se_x, se_r)
+    print(f"TNVMC exchange chains, {nchains}, {VMC_EXCHANGE_BURN} proposal "
+          f"steps ({t_burn:.3f} s, {t_burn / VMC_EXCHANGE_BURN * 1e3:.3f} ms "
+          f"a step) and {VMC_SAMPLES} samples a chain ({t_draw:.3f} s): "
+          f"{text}; {zr:.2f} combined errors from the single-flip chains' "
+          f"S^z=0 part (bound {VMC_SIGMAS})", flush=True)
+    if not ((configs.sum(axis=2) == n // 2).all() and z_x <= VMC_SIGMAS
+            and zr <= VMC_SIGMAS):
+        raise AssertionError("the exchange estimate misses the S^z = 0 "
+                             "part, or its halves disagree")
+    return e_x, se_x
+
+
+def _vmc_step_breakdown(vmc):
+    """One SR step as step() runs it, each stage on a synchronised clock:
+    sampling, local energies, gradients, and the rest of the update (the
+    S matrix and its solve)."""
+    from quimb_torch.experimental import tnvmc
+
+    stages = {}
+
+    def timed_method(name, fn):
+        def wrapper(*args):
+            out, secs = _timed(lambda: fn(*args))
+            stages[name] = stages.get(name, 0.0) + secs
+            return out
+        return wrapper
+
+    reads0 = sum(tnvmc.HOST_READS.values())
+    vmc._sample_batch = timed_method("sampling", vmc._sample_batch)
+    vmc._local_energies = timed_method("local energies",
+                                       vmc._local_energies)
+    vmc._grad_logs = timed_method("gradients", vmc._grad_logs)
+    vmc._update = timed_method("update", vmc._update)
+    try:
+        (e, err), secs = _timed(vmc.step)
+    finally:
+        for name in ("_sample_batch", "_local_energies", "_grad_logs",
+                     "_update"):
+            del vmc.__dict__[name]
+    stages["solve and the rest"] = (stages.pop("update")
+                                    - stages["local energies"]
+                                    - stages["gradients"])
+    return e, err, secs, stages, sum(tnvmc.HOST_READS.values()) - reads0
+
+
+def run_tnvmc():
+    """Phase 29(a)-(b): TNVMC on the 6 x 6 Heisenberg PEPS at D=4."""
+    ref = _slice16_reference("vmc")
+    e_exact = ref["energy"]["64"]
+    psi, vmc = _vmc_state(ref)
+    if not all(p.is_cuda and p.dtype == torch.float64 for p in vmc.params):
+        raise AssertionError("the TNVMC parameters are not float64 on the "
+                             "card")
+    _vmc_fixed(psi, vmc, ref)
+    e0, se0 = _vmc_estimates(vmc, ref, e_exact)
+    base = _fresh_peak()
+    energies = []
+    for k in range(VMC_STEPS):
+        e, err, secs, stages, reads = _vmc_step_breakdown(vmc)
+        energies.append((e, err))
+        print(f"  SR step {k}: E {e!r} +- {err:.4f}, {secs:.3f} s ("
+              + ", ".join(f"{n} {t:.3f}" for n, t in stages.items())
+              + f"), {reads} host reads of its values", flush=True)
+    peak = _peak_from(base)
+    syncs = _syncs(vmc.step)
+    share, top, wall_us, count = _busy_share(vmc.step)
+    print(f"TNVMC SR steps: peak allocation {peak:.3f} GB (S is "
+          f"{ref['nparams'] ** 2 * 8 / 1e9:.3f} GB), {syncs} host syncs a "
+          f"step, one step under torch.profiler {wall_us / 1e6:.3f} s wall, "
+          f"{count} device activities, busy share "
+          + ("not measured" if share is None else f"{share:.4f}"),
+          flush=True)
+    for name, us in top:
+        print(f"  {us / 1e3:.3f} ms  {name[:100]}", flush=True)
+    rise = max(e - e0 - VMC_RISE_SIGMAS * max(se0, err)
+               for e, err in energies)
+    if rise > 0:
+        raise AssertionError("an SR step's energy rose above the start's")
+
+
+def run_ctmrg_2d():
+    """Phase 29(c): the 2D Ising partition function at beta_c by the
+    translationally invariant CTMRG, against quimb_tpu's."""
+    from quimb_torch.experimental import (
+        classical_ising_T_A_C,
+        ctmrg_partition_function,
+    )
+
+    ref = _slice16_reference("ctmrg")
+    T, A, C = classical_ising_T_A_C(ref["beta"])
+    (Z, exponent), secs = _timed(lambda: ctmrg_partition_function(
+        T, A, C, ref["L"], ref["max_bond"], strip_exponent=True))
+    log10_z = math.log10(float(Z)) + exponent
+    rel = abs(log10_z - ref["log10_Z"]) / abs(ref["log10_Z"])
+    print(f"CTMRG 2D Ising L={ref['L']} max_bond={ref['max_bond']} at "
+          f"beta_c: {secs:.3f} s ({ref['L'] // 2 - 2} growth steps, "
+          f"quimb_tpu's host run {ref['seconds']:.1f} s), log10 Z "
+          f"{log10_z!r}, quimb_tpu's {ref['log10_Z']!r}, relative {rel:.3e} "
+          f"(bound {CTMRG_TOL:.0e})", flush=True)
+    if not (T.is_cuda and rel <= CTMRG_TOL):
+        raise AssertionError("CTMRG's log Z misses quimb_tpu's")
+
+
+def run_marginals():
+    """Phase 29(d): the marginals of every bond of phase 22's 3 x 3 x 3 Ising
+    network by autodiff, against slicing."""
+    from quimb_torch.experimental import (
+        compute_all_marginals_via_autodiff,
+        compute_all_marginals_via_slicing,
+    )
+
+    tn = _ising(MARG_L)
+    inds = sorted(tn.inner_inds())
+    grad, t_grad = _timed(lambda: compute_all_marginals_via_autodiff(
+        tn, inds))
+    sliced, t_slice = _timed(lambda: compute_all_marginals_via_slicing(
+        tn, inds))
+    err = max(float(np.max(np.abs(grad[ix] - sliced[ix]))) for ix in inds)
+    print(f"marginals of the {len(inds)} bonds of the {MARG_L}^3 Ising "
+          f"network: one gradient {t_grad:.3f} s, {2 * len(inds)} sliced "
+          f"contractions {t_slice:.3f} s, largest distance {err:.3e} (bound "
+          f"{MARG_TOL:.0e})", flush=True)
+    if not err <= MARG_TOL:
+        raise AssertionError("the marginals by autodiff miss slicing's")
+
+
+def run_slice16():
+    """Phase 29: TNVMC, CTMRG and the marginals, launching no sandwich
+    kernel."""
+    t_phase = time.perf_counter()
+    _reset_launches()
+    run_tnvmc()
+    run_ctmrg_2d()
+    run_marginals()
+    if sum(ck.LAUNCHES.values()):
+        raise AssertionError("phase 29 launched a sandwich kernel")
+    torch.cuda.empty_cache()
+    print(f"VMC, CTMRG and marginals phase: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main():
     t_start = time.perf_counter()
     check_device()
@@ -4321,6 +4718,7 @@ def main():
     run_hyper_bp()
     run_tnoptimizer()
     run_cluster_update()
+    run_slice16()
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{

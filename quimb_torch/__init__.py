@@ -39,7 +39,13 @@ symmetry sectors, the term builder and the matrix-free sector operator
 measurement, decompositions), ``Evolution`` by RK45, ``solve`` and Krylov
 for kets and density operators, the rest of ``core``, ``linalg`` and
 ``gen``, ``gates`` and the dense circuit simulator ``CircuitDense``; their
-names resolve at the top level on first use, as quimb_tpu's do.
+names resolve at the top level on first use, as quimb_tpu's do, with
+``utils``' and ``utils_plot``'s. And ``experimental`` (variational Monte
+Carlo batched over chains, the CP decomposition, CTMRG, network marginals,
+the isometric network builder) and the drawing code, which imports
+matplotlib only when something is drawn. The default dtype is a
+thread-local stack (``config.default_dtype``, ``QUIMB_TORCH_DTYPE``) that
+every builder reads when called.
 Every builder and entry point
 puts its tensors on the GPU unless it is given another ``device``, such as
 ``"cpu"``. The package imports torch, never JAX.
@@ -90,7 +96,8 @@ __all__ = [*_tensor_all, *_linalg_all, "Evolution", "computational_state",
 # lazy index, quimb_tpu/__init__.py)
 _LAZY_MODULES = ("core", "calc", "evo", "gen.states", "gen.operators",
                  "gen.rand", "linalg.base_linalg", "linalg.approx_spectral",
-                 "linalg.rand_linalg", "gates", "operator")
+                 "linalg.rand_linalg", "gates", "operator", "utils",
+                 "utils_plot")
 _LAZY_INDEX = {}
 
 

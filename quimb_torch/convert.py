@@ -104,22 +104,36 @@ def from_tpu_gauges(gauges, device=None, dtype=None):
 
 
 def from_tpu_tngen(tn, device=None, dtype=None):
-    """A quimb_tpu ``TensorNetworkGen``, ``TensorNetworkGenVector`` or
-    ``TensorNetworkGenOperator`` -> the port's class of the same name, with
+    """A quimb_tpu ``TensorNetworkGen``, ``TensorNetworkGenVector``,
+    ``TensorNetworkGenOperator`` or ``TensorNetworkGenIso`` (with its
+    layering state) -> the port's class of the same name, with
     the same tensors (in the same order, so the same bond order), index
     names, tags, ``sites``, ``site_tag_id`` and ``site_ind_id`` (or upper
     and lower index ids), its arrays read as numpy arrays."""
+    from .experimental import merabuilder
     from .tensor.core import Tensor, TensorNetwork
     from .tensor.tnag import core as ag
+    from .utils import oset
 
-    cls = getattr(ag, type(tn).__name__)
+    name = type(tn).__name__
+    cls = getattr(merabuilder if name == "TensorNetworkGenIso" else ag, name)
     ids = {ep.lstrip("_"): getattr(tn, ep) for ep in cls._EXTRA_PROPS}
     device = resolve_device(device)
     new = TensorNetwork([
         Tensor(to_device(np.asarray(t.data), device=device, dtype=dtype),
-               inds=tuple(t.inds), tags=tuple(t.tags))
+               inds=tuple(t.inds), tags=tuple(t.tags),
+               left_inds=getattr(t, "left_inds", None))
         for t in tn.tensor_map.values()], virtual=True)
-    return new.view_as_(cls, **ids)
+    new = new.view_as_(cls, **ids)
+    if name == "TensorNetworkGenIso" and hasattr(tn, "_open"):
+        # the layering state, so that more layers can be added
+        new._device = device
+        new._phys_dim = tn._phys_dim
+        new._nlayer = tn._nlayer
+        new._open = dict(tn._open)
+        new._open_dims = dict(tn._open_dims)
+        new._cone = {s: oset(c) for s, c in tn._cone.items()}
+    return new
 
 
 def from_tpu_mera(mera, device=None, dtype=None):

@@ -27,7 +27,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from .config import DEFAULT_DTYPE
+from .config import get_default_dtype, get_default_real_dtype
 from .ops.backend import (complex_dtype, numpy_dtype, resolve_device,
                            to_device, to_host)
 
@@ -123,7 +123,7 @@ def quimbify(data, qtype=None, normalized=False, chopped=False,
     ``device``, the GPU by default. With ``sparse`` the result is a host
     scipy CSR matrix (quimb_tpu's is a JAX BCOO), which
     :func:`device_operator` takes to the device."""
-    dtype = dtype or DEFAULT_DTYPE
+    dtype = dtype or get_default_dtype()
     if sp.issparse(data):
         data = data.toarray()
     if isinstance(data, torch.Tensor):
@@ -337,7 +337,7 @@ def kronpow(a, p, **kron_opts):
 def eye(d, sparse=False, dtype=None, device=None):
     """The identity of dimension ``d``: a host scipy CSR matrix with
     ``sparse``, else a tensor on ``device``, the GPU by default."""
-    dtype = dtype or DEFAULT_DTYPE
+    dtype = dtype or get_default_dtype()
     if sparse:
         return sp.eye(d, dtype=numpy_dtype(dtype), format="csr")
     return torch.eye(d, dtype=dtype, device=resolve_device(device))
@@ -405,7 +405,7 @@ def pkron(op, dims, inds, **ikron_opts):
     new_dims = [dims[i] for i in new_order]
     big = ikron(op, new_dims, tuple(range(len(inds))), **ikron_opts)
     if sp.issparse(big):
-        big = to_device(big.toarray(), dtype=DEFAULT_DTYPE,
+        big = to_device(big.toarray(), dtype=get_default_dtype(),
                         device=resolve_device(ikron_opts.get("device")))
     perm = [new_order.index(k) for k in range(n)]
     return permute(big, new_dims_order(dims, new_order), perm)
@@ -470,7 +470,7 @@ def ham_from_terms(terms, dims, sparse=False, dtype=None, device=None):
     records their summed local matrices under :data:`LOCAL_TERMS_ATTR`, so
     that :func:`device_operator` can apply it term by term. Otherwise a
     dense tensor on ``device``, the GPU by default."""
-    dtype = dtype or DEFAULT_DTYPE
+    dtype = dtype or get_default_dtype()
     if not sparse:
         device = resolve_device(device)
     n = len(dims)
@@ -519,7 +519,7 @@ class SparseHam:
         device = resolve_device(device)
         Hc = H.tocoo() if sp.issparse(H) else sp.coo_matrix(to_host(H))
         if dtype is None:
-            dtype = DEFAULT_DTYPE
+            dtype = get_default_dtype()
             if np.iscomplexobj(Hc.data) and np.allclose(Hc.data.imag, 0):
                 Hc = Hc.copy()
                 Hc.data = Hc.data.real
@@ -622,7 +622,7 @@ class LocalTermsHam:
         real = all(np.allclose(np.asarray(m).imag, 0)
                    for m in terms.values())
         if dtype is None:
-            dtype = _real_dtype(DEFAULT_DTYPE) if real else DEFAULT_DTYPE
+            dtype = get_default_real_dtype() if real else get_default_dtype()
         self.dtype = dtype
         self.device = device
         self.sites = tuple(sorted(terms))

@@ -16,7 +16,7 @@ import math
 
 import numpy as np
 
-from ..config import DEFAULT_DTYPE
+from ..config import get_default_dtype
 from ..core import ham_from_terms
 from ..ops.backend import resolve_device, to_device, to_torch_dtype
 
@@ -32,7 +32,7 @@ def _asdevice(x, dtype=None, device=None):
     """A host matrix as a tensor in ``dtype`` (complex128 by default) on
     ``device`` (the GPU by default)."""
     return to_device(np.asarray(x), device=resolve_device(device),
-                     dtype=to_torch_dtype(dtype or DEFAULT_DTYPE))
+                     dtype=to_torch_dtype(dtype or get_default_dtype()))
 
 
 def _pauli(xyz):
@@ -68,7 +68,7 @@ def spin_operator(label, S=1 / 2, dtype=None, device=None):
     default)."""
     return to_device(_spin_op_np(str(label), float(S)),
                      device=resolve_device(device),
-                     dtype=dtype or DEFAULT_DTYPE)
+                     dtype=dtype or get_default_dtype())
 
 
 def pauli(xyz, dim=2, dtype=None, device=None):
@@ -78,7 +78,7 @@ def pauli(xyz, dim=2, dtype=None, device=None):
         return spin_operator(xyz, S=(dim - 1) / 2, dtype=dtype,
                              device=device) * 2.0
     return to_device(_PAULI[str(xyz).upper()], device=resolve_device(device),
-                     dtype=dtype or DEFAULT_DTYPE)
+                     dtype=dtype or get_default_dtype())
 
 
 def identity(d, dtype=None, device=None):

@@ -18,7 +18,7 @@ import threading
 import numpy as np
 import torch
 
-from ..config import DEFAULT_DTYPE
+from ..config import get_default_dtype
 from ..ops.backend import resolve_device, to_torch_dtype
 
 _LOCK = threading.Lock()
@@ -84,7 +84,7 @@ def randn(shape=(), dtype=None, scale=1.0, loc=0.0, seed=None,
     imaginary parts, each of unit variance, as in quimb_tpu."""
     if isinstance(shape, int):
         shape = (shape,)
-    dtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
+    dtype = to_torch_dtype(dtype or get_default_dtype())
     device = resolve_device(device)
     return _randn_from(_generator(device, seed), tuple(shape), dtype, scale,
                        loc, dist, device)
@@ -96,7 +96,7 @@ def get_rand_fill_fn(dist="normal", loc=0.0, scale=1.0, seed=None,
     unless given), drawing from one generator seeded ``seed`` (reference
     ``get_rand_fill_fn`` gen/rand.py:322): successive calls draw fresh
     values, and two closures of one seed draw the same sequence."""
-    dtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
+    dtype = to_torch_dtype(dtype or get_default_dtype())
     device = resolve_device(device)
     gen = _generator(device, seed)
     if seed is None:
@@ -117,7 +117,7 @@ def get_rand_fill_fn(dist="normal", loc=0.0, scale=1.0, seed=None,
 def rand_phase(shape, dtype=None, seed=None, device=None):
     """Random pure phases ``e^{i theta}``, theta uniform in [0, 2 pi), in a
     complex ``dtype`` on ``device`` (the GPU unless given)."""
-    dtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
+    dtype = to_torch_dtype(dtype or get_default_dtype())
     if not dtype.is_complex:
         raise ValueError("rand_phase needs a complex dtype")
     if isinstance(shape, int):
@@ -172,7 +172,7 @@ def rand_herm(d, sparse=False, density=0.01, dtype=None, seed=None,
         vals = rng.standard_normal(nnz) + 1j * rng.standard_normal(nnz)
         m = sp.coo_matrix((vals, (rows, cols)), shape=(d, d)).tocsr()
         m = (m + m.getH()) / 2
-        return m.astype(numpy_dtype(to_torch_dtype(dtype or DEFAULT_DTYPE)))
+        return m.astype(numpy_dtype(to_torch_dtype(dtype or get_default_dtype())))
     m = rand_matrix(d, dtype=dtype, seed=seed, device=device)
     return (m + m.conj().T) / 2
 
@@ -238,7 +238,7 @@ def rand_product_state(n, qtype=None, dtype=None, seed=None, device=None):
         vec = np.kron(vec, np.array([np.cos(theta / 2),
                                      np.exp(1j * phi) * np.sin(theta / 2)]))
     return torch.as_tensor(vec.reshape(-1, 1),
-                           dtype=to_torch_dtype(dtype or DEFAULT_DTYPE),
+                           dtype=to_torch_dtype(dtype or get_default_dtype()),
                            device=resolve_device(device))
 
 

@@ -11,14 +11,14 @@ import math
 import numpy as np
 import torch
 
-from ..config import DEFAULT_DTYPE
+from ..config import get_default_dtype
 from ..core import ikron, kron, pkron, quimbify
 from ..ops.backend import resolve_device
 
 
 def basis_vec(i, dim, dtype=None, qtype="ket", device=None):
     """The ``i``-th computational basis ket of dimension ``dim``."""
-    x = torch.zeros(dim, dtype=dtype or DEFAULT_DTYPE,
+    x = torch.zeros(dim, dtype=dtype or get_default_dtype(),
                     device=resolve_device(device))
     x[i] = 1.0
     return quimbify(x, qtype=qtype, dtype=x.dtype)

@@ -1,6 +1,12 @@
 """Iterative linear algebra of quimb_torch: Lanczos, stochastic Lanczos
 quadrature and randomized SVDs."""
 
+from .lanczos import (
+    eigh_lanczos,
+    eigsh,
+    expm_multiply_krylov,
+    lobpcg_block,
+)
 from .approx_spectral import (
     approx_spectral_function,
     entropy_subsys_approx,
@@ -23,6 +29,7 @@ from .rand_linalg import (
 )
 
 __all__ = [
+    "eigh_lanczos", "eigsh", "expm_multiply_krylov", "lobpcg_block",
     "approx_spectral_function", "count_svdvals_needed",
     "entropy_subsys_approx", "estimate_rank", "isvd",
     "logneg_subsys_approx", "negativity_subsys_approx",

@@ -661,17 +661,24 @@ class SparseOperatorBuilder:
         return transitions, nstates
 
     def draw_state_machine(self, **kwargs):
-        """Drawing is host-only plotting code, not ported yet (ROADMAP
-        item 16(f))."""
-        raise NotImplementedError(
-            "draw_state_machine is not ported yet: ROADMAP item 16(f)")
+        """Print a text rendering of the MPO state machine (reference
+        ``draw_state_machine`` builder.py:1541 draws with
+        matplotlib); returns its transitions."""
+        transitions, nstates = self.build_state_machine_greedy()
+        for r, trans in enumerate(transitions):
+            print(f"reg {r}: {nstates[r]} -> {nstates[r + 1]} states")
+            for (si, so), M in sorted(trans.items()):
+                name = _KEY_TO_NAME.get(_op_key(M), "op")
+                print(f"  {si} --{name}--> {so}")
+        return transitions
 
     def build_mpo(self, L=None, dtype=None, device=None, **mpo_opts):
         """An MPO of the operator via the greedy FSM (reference
         ``build_mpo`` builder.py:1632), compressed at cutoff 1e-14, its
         tensors on ``device`` (the GPU by default). Its dtype is
-        complex64 for a complex operator and complex128 otherwise, unless
-        given, as quimb_tpu's."""
+        complex64 for a complex operator and the default dtype otherwise,
+        unless given, as quimb_tpu's."""
+        from ..config import get_default_dtype
         from ..ops.backend import resolve_device, to_device, to_torch_dtype
         from ..tensor.tn1d.core import MatrixProductOperator
 
@@ -679,7 +686,7 @@ class SparseOperatorBuilder:
         if L is not None and L != n:
             raise ValueError("L must equal the number of sites")
         dtype = to_torch_dtype(dtype or (
-            "complex64" if self.iscomplex else "complex128"))
+            "complex64" if self.iscomplex else get_default_dtype()))
         device = resolve_device(device)
         transitions, nstates = self.build_state_machine_greedy()
         arrays = []

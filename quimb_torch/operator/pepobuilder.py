@@ -24,7 +24,7 @@ interaction pair k.
 import numpy as np
 import torch
 
-from ..config import DEFAULT_DTYPE
+from ..config import get_default_dtype
 from ..ops.backend import resolve_device, to_device, to_torch_dtype
 from ..tensor.tn2d.core import PEPO
 
@@ -120,7 +120,7 @@ def pepo_nearest_neighbor(
     else:
         C = np.asarray(onsite, dtype=complex)
 
-    out_dtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
+    out_dtype = to_torch_dtype(dtype or get_default_dtype())
     device = resolve_device(device)
     Ws = [
         [

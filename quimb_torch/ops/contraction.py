@@ -82,6 +82,32 @@ def contract_backend(backend):
         s.pop()
 
 
+
+# quimb_tpu keeps a third stack, the backend of its tensor linear operators,
+# which it sets and never reads: it selects nothing there, nor here. Kept so
+# code written against quimb_tpu's names runs unchanged.
+
+
+def get_tensor_linop_backend():
+    return _stack("linop_backend", _DEFAULT_BACKEND)[-1]
+
+
+def set_tensor_linop_backend(backend):
+    _stack("linop_backend", _DEFAULT_BACKEND)[-1] = backend
+
+
+@contextlib.contextmanager
+def tensor_linop_backend(backend):
+    """Context manager setting the linear operators' backend (selects
+    nothing: no code reads it)."""
+    s = _stack("linop_backend", _DEFAULT_BACKEND)
+    s.append(backend)
+    try:
+        yield
+    finally:
+        s.pop()
+
+
 # -- eq utilities ------------------------------------------------------------
 
 

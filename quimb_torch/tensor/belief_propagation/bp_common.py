@@ -123,12 +123,11 @@ class BeliefPropagationCommon:
         )
 
     def plot(self, **kwargs):
-        """Plot the message-convergence history (reference ``plot``
-        bp_common.py:384): host drawing, which ROADMAP item 16(f)
-        ports."""
-        from ..core import _deferred
+        """Plot the message-convergence history (reference
+        ``plot`` bp_common.py:384)."""
+        from ...utils_plot import plot_multi_series_zoom
 
-        raise _deferred("16(f)", "BeliefPropagationCommon.plot (drawing)")
+        return plot_multi_series_zoom({"mdiff": self.mdiffs}, **kwargs)
 
     def run(self, max_iterations=None, tol=None, progbar=False):
         max_iterations = max_iterations or self.max_iterations

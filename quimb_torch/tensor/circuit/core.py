@@ -25,7 +25,7 @@ import numbers
 import numpy as np
 import torch
 
-from ...config import DEFAULT_DTYPE
+from ...config import get_default_dtype
 from ...ops.backend import (
     numpy_dtype,
     resolve_device,
@@ -145,7 +145,7 @@ class CircuitBase:
     def __init__(self, N=None, psi0=None, gate_opts=None, tags=None,
                  dtype=None, device=None):
         self.device = resolve_device(device)
-        self.dtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
+        self.dtype = to_torch_dtype(dtype or get_default_dtype())
         if psi0 is None:
             if N is None:
                 raise ValueError("supply N or psi0")

@@ -17,7 +17,7 @@ import numbers
 
 import torch
 
-from ...config import DEFAULT_DTYPE
+from ...config import get_default_dtype
 from ...ops.backend import resolve_device, to_device, to_torch_dtype
 from ..core import Tensor, TensorNetwork, rand_uuid
 from ..gating import tensor_network_gate_inds
@@ -36,7 +36,7 @@ class CircuitPEPOSimpleUpdate(CircuitBase):
                  cutoff=1e-10, gate_opts=None, tags=None, dtype=None,
                  device=None):
         self.device = resolve_device(device)
-        self.dtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
+        self.dtype = to_torch_dtype(dtype or get_default_dtype())
         self._edges = (
             tuple(tuple(e) for e in edges) if edges is not None
             else None

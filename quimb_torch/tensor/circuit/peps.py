@@ -6,7 +6,7 @@ unless the caller names another)."""
 
 import numbers
 
-from ...config import DEFAULT_DTYPE
+from ...config import get_default_dtype
 from ...ops.backend import resolve_device, to_device, to_torch_dtype
 from ..tn2d.builders import PEPS_computational_state
 from .core import CircuitBase
@@ -34,7 +34,7 @@ class CircuitPEPS(CircuitBase):
         self.N = Lx * Ly
         # circuits need a complex working dtype regardless of the
         # (real) default of the PEPS builders
-        self.dtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
+        self.dtype = to_torch_dtype(dtype or get_default_dtype())
         self._psi = psi0.copy().astype_(self.dtype)
         self._psi.apply_to_arrays(
             lambda a: to_device(a, device=self.device))

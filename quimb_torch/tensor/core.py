@@ -1043,7 +1043,11 @@ class Tensor:
         return self.__repr__()
 
     def draw(self, *args, **kwargs):
-        raise _deferred(16, "Tensor.draw (drawing.py)")
+        """Plot this tensor as a one-tensor network (reference
+        ``Tensor.draw``; ``tensor/drawing.py:draw_tn``)."""
+        from .drawing import draw_tn
+
+        return draw_tn(TensorNetwork((self,), virtual=True), *args, **kwargs)
 
     graph = draw
 
@@ -1053,10 +1057,10 @@ def COPY_tensor(d, inds, tags=None, dtype=None, device=None):
     """A COPY (hyper/delta) tensor: 1 where all indices equal
     (reference tensor_core.py:3853), on ``device`` (the GPU unless
     given)."""
-    from ..config import DEFAULT_DTYPE
+    from ..config import get_default_dtype
     from ..ops.backend import resolve_device, to_torch_dtype
 
-    dtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
+    dtype = to_torch_dtype(dtype or get_default_dtype())
     ndim = len(inds)
     data = torch.zeros((d,) * ndim, dtype=dtype,
                        device=resolve_device(device))
@@ -2339,7 +2343,10 @@ class TensorNetwork:
     gate_inds_ = functools.partialmethod(gate_inds, inplace=True)
 
     def draw(self, *args, **kwargs):
-        raise _deferred(16, "TensorNetwork.draw (drawing.py)")
+        """Plot this network's graph (``tensor/drawing.py:draw_tn``)."""
+        from .drawing import draw_tn
+
+        return draw_tn(self, *args, **kwargs)
 
     graph = draw
 
@@ -3750,7 +3757,9 @@ def _wire_parity_methods():
         """Plot the entries of every tensor, arranged by the graph
         layout ('network') or tiled ('grid'/'row'/'col') (reference
         ``visualize_tensors`` drawing.py:1644)."""
-        raise _deferred(16, "TensorNetwork.visualize_tensors (drawing.py)")
+        from .drawing import visualize_tensors
+
+        return visualize_tensors(self, mode=mode, **kwargs)
 
     TN.draw_3d = draw_3d
     TN.draw_interactive = draw_interactive
@@ -4127,7 +4136,9 @@ def _wire_tensor_parity():
         """Plot this tensor's entries: magnitude -> size, phase -> hue
         (reference ``Tensor.visualize`` / ``visualize_tensor``
         drawing.py)."""
-        raise _deferred(16, "Tensor.visualize (drawing.py)")
+        from .drawing import visualize_tensor
+
+        return visualize_tensor(self, **kwargs)
 
     T.visualize = _t_visualize
 

@@ -30,7 +30,6 @@ from torch.utils import _pytree as pytree
 
 from ..utils import progbar as Progbar
 from . import interface  # noqa: F401  (registers the network classes)
-from .core import _deferred
 
 
 def _sorted_dict(tree):
@@ -572,8 +571,18 @@ class TNOptimizer:
         raise NotImplementedError("nevergrad backend not bundled; use "
                                   "optimize() instead")
 
-    def plot(self, *args, **kwargs):
-        raise _deferred("16(f)", "TNOptimizer.plot (utils_plot.py)")
+    def plot(self, zoom=None, hlines=(), **kwargs):
+        """Plot the loss history (reference ``TNOptimizer.plot``)."""
+        from ..utils_plot import plot_multi_series_zoom
+
+        fig, ax = plot_multi_series_zoom(
+            {"loss": self.losses}, zoom=zoom, **kwargs
+        )
+        ax.set_xlabel("iteration")
+        ax.set_ylabel("loss")
+        for h in hlines:
+            ax.axhline(h, color="grey", ls="--")
+        return fig, ax
 
     def get_tn_opt(self):
         """The current optimized network, norm_fn applied, detached."""

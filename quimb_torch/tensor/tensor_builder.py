@@ -28,7 +28,7 @@ import math
 import numpy as np
 import torch
 
-from ..config import DEFAULT_DTYPE
+from ..config import get_default_dtype
 from ..gen.rand import get_rand_fill_fn, rand_phase, randn
 from ..ops.backend import resolve_device, to_device, to_host, to_torch_dtype
 from ..ops.contraction import array_contract
@@ -541,7 +541,7 @@ def TN_matching(tn, max_bond, site_tags=None, fill_fn=None, dtype=None,
             try:
                 dtype = tn.dtype
             except (AttributeError, ValueError):
-                dtype = DEFAULT_DTYPE
+                dtype = get_default_dtype()
         fill_fn = get_rand_fill_fn(dtype=dtype, device=device,
                                    **randn_opts)
 

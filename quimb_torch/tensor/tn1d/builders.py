@@ -21,7 +21,7 @@ from numbers import Integral
 import numpy as np
 import torch
 
-from ...config import DEFAULT_DTYPE, DEFAULT_REAL_DTYPE
+from ...config import get_default_dtype, get_default_real_dtype
 from ...gen.operators import _spin_op_np
 from ...ops.backend import resolve_device, to_device, to_host, to_torch_dtype
 from .core import (
@@ -32,8 +32,10 @@ from .core import (
 )
 
 
-def _dtype(dtype, default=DEFAULT_REAL_DTYPE):
-    return to_torch_dtype(dtype or default)
+def _dtype(dtype, default=None):
+    """``dtype`` as a torch dtype, else ``default``, else the real
+    counterpart of the default dtype (read at call time)."""
+    return to_torch_dtype(dtype or default or get_default_real_dtype())
 
 
 def _on(arrays, device, dtype=None):
@@ -418,7 +420,7 @@ class SpinHam1D:
         if self.cyclic:
             return self._build_mpo_cyclic(L, tags=tags, dtype=dtype,
                                           device=device, **ids)
-        dtype = _dtype(dtype, DEFAULT_DTYPE)
+        dtype = _dtype(dtype, get_default_dtype())
         arrays = []
         for i in range(L):
             W = self._mpo_tensor(
@@ -461,7 +463,7 @@ class SpinHam1D:
             ops[0] = self._op(s2)
             term = MPO_product_operator(
                 ops, cyclic=True, tags=tags, device=device,
-                dtype=_dtype(dtype, DEFAULT_DTYPE), **ids)
+                dtype=_dtype(dtype, get_default_dtype()), **ids)
             total = total.add_MPO(term)
         return total
 

@@ -1122,7 +1122,7 @@ class Dense1D(TensorNetwork1DVector):
         TensorNetwork.__init__(self, (t,), virtual=True, **tn_opts)
 
     @classmethod
-    def rand(cls, n, phys_dim=2, dtype="float64", seed=None, device=None,
+    def rand(cls, n, phys_dim=2, dtype=None, seed=None, device=None,
              **kwargs):
         """A random normalised dense state on ``n`` sites."""
         from ...gen.rand import randn

@@ -14,7 +14,7 @@ import itertools
 import numpy as np
 import torch
 
-from ...config import DEFAULT_REAL_DTYPE
+from ...config import get_default_real_dtype
 from ...gen.rand import randn
 from ...ops.backend import resolve_device, to_device, to_torch_dtype
 from .core import PEPO, PEPS
@@ -29,7 +29,7 @@ def _bond_shape(i, j, Lx, Ly, bond_dim):
 def PEPS_rand(Lx, Ly, bond_dim, phys_dim=2, normalize=False, dtype=None,
               seed=None, device=None, **peps_opts):
     """Random PEPS of shape (Lx, Ly) with given bond dimension."""
-    dtype = dtype or DEFAULT_REAL_DTYPE
+    dtype = dtype or get_default_real_dtype()
     arrays = []
     s = 0
     for i in range(Lx):
@@ -82,7 +82,7 @@ def PEPS_computational_state(binary, Lx=None, Ly=None, dtype=None,
                              device=None, **peps_opts):
     """PEPS for a computational product state. ``binary`` may be a
     string (row-major) or 2D array of 0/1."""
-    dtype = to_torch_dtype(dtype or DEFAULT_REAL_DTYPE)
+    dtype = to_torch_dtype(dtype or get_default_real_dtype())
     if isinstance(binary, str):
         if Lx is None or Ly is None:
             raise ValueError("need Lx, Ly for a flat string")
@@ -101,7 +101,7 @@ def PEPS_computational_state(binary, Lx=None, Ly=None, dtype=None,
 
 def PEPS_zeros(Lx, Ly, bond_dim, phys_dim=2, dtype=None, device=None,
                **peps_opts):
-    dtype = to_torch_dtype(dtype or DEFAULT_REAL_DTYPE)
+    dtype = to_torch_dtype(dtype or get_default_real_dtype())
     device = resolve_device(device)
     arrays = [
         [torch.zeros(_bond_shape(i, j, Lx, Ly, bond_dim) + [phys_dim],
@@ -114,7 +114,7 @@ def PEPS_zeros(Lx, Ly, bond_dim, phys_dim=2, dtype=None, device=None,
 def PEPO_identity(Lx, Ly, phys_dim=2, dtype=None, device=None,
                   **pepo_opts):
     """Identity PEPO."""
-    dtype = to_torch_dtype(dtype or DEFAULT_REAL_DTYPE)
+    dtype = to_torch_dtype(dtype or get_default_real_dtype())
     II = torch.eye(phys_dim, dtype=dtype, device=resolve_device(device))
     arrays = []
     for i in range(Lx):
@@ -128,7 +128,7 @@ def PEPO_identity(Lx, Ly, phys_dim=2, dtype=None, device=None,
 
 def PEPO_rand(Lx, Ly, bond_dim, phys_dim=2, herm=False, dtype=None,
               seed=None, device=None, **pepo_opts):
-    dtype = dtype or DEFAULT_REAL_DTYPE
+    dtype = dtype or get_default_real_dtype()
     arrays = []
     s = 0
     for i in range(Lx):

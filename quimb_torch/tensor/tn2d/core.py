@@ -1676,10 +1676,10 @@ def _wire_peps_constructors():
 
     def _peps_ones(cls, Lx, Ly, bond_dim, phys_dim=2, dtype=None,
                    device=None, **kw):
-        from ...config import DEFAULT_REAL_DTYPE
+        from ...config import get_default_real_dtype
         from ...ops.backend import resolve_device, to_torch_dtype
 
-        dtype = to_torch_dtype(dtype or DEFAULT_REAL_DTYPE)
+        dtype = to_torch_dtype(dtype or get_default_real_dtype())
         device = resolve_device(device)
         return _peps_from_fill_fn(
             cls, lambda s: torch.ones(s, dtype=dtype, device=device), Lx,
@@ -1798,10 +1798,10 @@ def _pepo_rand(cls, Lx, Ly, bond_dim, phys_dim=2, herm=False,
     """A random (optionally hermitian) PEPO (reference ``PEPO.rand``
     tn2d/core.py:5291), drawn by the port's seeded ``randn`` on
     ``device`` (the GPU unless given)."""
-    from ...config import DEFAULT_REAL_DTYPE
+    from ...config import get_default_real_dtype
     from ...gen.rand import randn
 
-    dtype = dtype or DEFAULT_REAL_DTYPE
+    dtype = dtype or get_default_real_dtype()
     counter = itertools.count()
 
     def fill_fn(shape):
@@ -1817,10 +1817,10 @@ def _pepo_rand(cls, Lx, Ly, bond_dim, phys_dim=2, herm=False,
 
 def _pepo_zeros(cls, Lx, Ly, bond_dim, phys_dim=2, dtype=None,
                 device=None, **pepo_opts):
-    from ...config import DEFAULT_REAL_DTYPE
+    from ...config import get_default_real_dtype
     from ...ops.backend import resolve_device, to_torch_dtype
 
-    dtype = to_torch_dtype(dtype or DEFAULT_REAL_DTYPE)
+    dtype = to_torch_dtype(dtype or get_default_real_dtype())
     device = resolve_device(device)
     return _pepo_from_fill_fn(
         cls, lambda s: torch.zeros(s, dtype=dtype, device=device), Lx, Ly,

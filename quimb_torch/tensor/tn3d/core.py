@@ -23,7 +23,7 @@ import itertools
 import numpy as np
 import torch
 
-from ...config import DEFAULT_REAL_DTYPE
+from ...config import get_default_real_dtype
 from ...gen.rand import randn
 from ...ops.backend import resolve_device
 from ...utils import oset
@@ -309,7 +309,7 @@ class PEPS3D(TensorNetwork3DVector):
         ``seed + s`` (s counting the sites), whose stream differs from
         quimb_tpu's JAX generator: build from a numpy fill function with
         :meth:`from_fill_fn` to share arrays with quimb_tpu."""
-        dtype = dtype or DEFAULT_REAL_DTYPE
+        dtype = dtype or get_default_real_dtype()
         device = resolve_device(device)
         arrays = []
         s = 0
@@ -797,7 +797,7 @@ def _p3d_ones(cls, Lx, Ly, Lz, bond_dim, phys_dim=2, device=None,
               **kwargs):
     device = resolve_device(device)
     return _p3d_from_fill_fn(
-        cls, lambda s: torch.ones(s, dtype=DEFAULT_REAL_DTYPE,
+        cls, lambda s: torch.ones(s, dtype=get_default_real_dtype(),
                                   device=device),
         Lx, Ly, Lz, bond_dim, phys_dim=phys_dim, **kwargs,
     )
@@ -807,7 +807,7 @@ def _p3d_empty(cls, Lx, Ly, Lz, bond_dim, phys_dim=2, device=None,
                **kwargs):
     device = resolve_device(device)
     return _p3d_from_fill_fn(
-        cls, lambda s: torch.zeros(s, dtype=DEFAULT_REAL_DTYPE,
+        cls, lambda s: torch.zeros(s, dtype=get_default_real_dtype(),
                                    device=device),
         Lx, Ly, Lz, bond_dim, phys_dim=phys_dim, **kwargs,
     )

@@ -16,7 +16,7 @@ import itertools
 import numpy as np
 import torch
 
-from ...config import DEFAULT_DTYPE
+from ...config import get_default_dtype
 from ...gen.rand import randn
 from ...ops.backend import resolve_device, to_device, to_torch_dtype
 from ...utils import oset
@@ -94,7 +94,7 @@ def TN_from_edges_rand(edges, D, phys_dim=None, seed=None, dtype=None,
                        normalize=False, device=None):
     """Random TN on a graph (reference ``TN_from_edges_rand``), drawn
     site by site from a generator seeded ``seed``, ``seed + 1``, ..."""
-    dtype = dtype or DEFAULT_DTYPE
+    dtype = dtype or get_default_dtype()
     device = resolve_device(device)
     counter = itertools.count()
 
@@ -117,7 +117,7 @@ TN_rand_from_edges = TN_from_edges_rand
 
 def TN_from_edges_empty(edges, D, phys_dim=None, dtype=None,
                         site_tag_id="I{}", site_ind_id="k{}", device=None):
-    dtype = to_torch_dtype(dtype or DEFAULT_DTYPE)
+    dtype = to_torch_dtype(dtype or get_default_dtype())
     device = resolve_device(device)
 
     def fill_fn(shape):

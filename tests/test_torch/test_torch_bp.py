@@ -334,5 +334,16 @@ def test_common_helpers_match():
     assert bp.mdiff == bp.mdiffs[-1]
     with pytest.raises(ValueError, match="damping"):
         tbp.D1BP(t, damping=1.5)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        bp.plot()
+    # the convergence plot: the same lines as quimb_tpu's plot of the same
+    # history (matplotlib's Agg backend)
+    import matplotlib
+    import matplotlib.pyplot as plt
+    from quimb_tpu.utils_plot import plot_multi_series_zoom
+
+    matplotlib.use("Agg")
+    fig, ax = bp.plot()
+    jfig, jax_ = plot_multi_series_zoom({"mdiff": bp.mdiffs})
+    assert [list(ln.get_ydata()) for ln in ax.lines] == \
+        [list(ln.get_ydata()) for ln in jax_.lines] == [list(bp.mdiffs)]
+    plt.close(fig)
+    plt.close(jfig)

@@ -210,8 +210,17 @@ def test_region_graph_matches(step):
         for child in rt.get_children(r):
             assert rt.get_message_parts((r, child)) == \
                 rj.get_message_parts((r, child))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        rt.draw()
+    # the Hasse diagram: one point a region at its level, as quimb_tpu's
+    import matplotlib
+    import matplotlib.pyplot as plt
+
+    matplotlib.use("Agg")
+    (ft, at), (fj, aj) = rt.draw(), rj.draw()
+    pts = [[tuple(c.get_offsets()[0]) for c in a.collections]
+           for a in (at, aj)]
+    assert pts[0] == pts[1] and len(pts[0]) == len(rt.counts)
+    plt.close(ft)
+    plt.close(fj)
 
 
 def test_gen_region_counts_matches():

@@ -1059,3 +1059,130 @@ def test_matrix_half_on_card_matches_cpu(cuda):
     for k in (1, 3, 4):
         np.testing.assert_allclose(out["cuda"][k], out["cpu"][k], rtol=0,
                                    atol=1e-10)
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+def test_tnvmc_step_on_card_matches_cpu(cuda, cplx):
+    """TNVMC's amplitudes, local energies, log-derivatives and one SR
+    update from injected configurations on a 3 x 2 PEPS: the card against
+    the CPU; and the exchange chains stay on the card."""
+    from quimb_torch.experimental import ExchangeSampler, TNVMC
+    from quimb_torch.operator import heisenberg_from_edges
+
+    rng = np.random.default_rng(3)
+    arrays = []
+    for i in range(3):
+        row = []
+        for j in range(2):
+            sh = [2] * sum((i < 2, j < 1, i > 0, j > 0)) + [2]
+            a = rng.standard_normal(sh)
+            row.append(a + 1j * rng.standard_normal(sh) if cplx else a)
+        arrays.append(row)
+    edges = [(0, 1), (2, 3), (4, 5), (0, 2), (2, 4), (1, 3), (3, 5)]
+    configs = rng.integers(0, 2, (16, 6))
+    out = {}
+    for dev in ("cpu", cuda):
+        psi = quimb_torch.PEPS([[torch.tensor(a, device=dev) for a in row]
+                                for row in arrays], shape="urdlp")
+        vmc = TNVMC(psi, heisenberg_from_edges(edges), nchains=16,
+                    sampler=ExchangeSampler(6, nchains=16, seed=1))
+        c = torch.as_tensor(configs, device=dev)
+        w = torch.ones(16, dtype=torch.float64, device=dev)
+        new, e, _ = vmc._update(vmc.params, c, w)
+        O = vmc._grad_logs(vmc.params, c)
+        out[str(dev)] = [x.cpu().numpy() for x in (
+            vmc._log_amp_batch(vmc.params, c),
+            vmc._local_energies(vmc.params, c), O, torch.cat(
+                [(p - q).reshape(-1) for p, q in zip(vmc.params, new)]))]
+        if dev != "cpu":
+            chains = vmc._sample_batch(vmc.params, 12)
+            assert chains.is_cuda and (chains.sum(dim=1) == 3).all()
+        else:
+            # the SR matrix's condition number bounds how far two float64
+            # solves of it may drift apart
+            Om = (O - O.mean(dim=0)).numpy()
+            ev = np.linalg.eigvalsh(Om.conj().T @ Om / 16 + 1e-3 * np.eye(
+                Om.shape[1]))
+            cond = ev[-1] / ev[0]
+    for got, want in zip(out["cuda"][:3], out["cpu"][:3]):
+        np.testing.assert_allclose(got, want, rtol=1e-10,
+                                   atol=1e-12 * np.abs(want).max())
+    step_t, step_c = out["cuda"][3], out["cpu"][3]
+    assert np.linalg.norm(step_t - step_c) <= \
+        10 * cond * 2.0 ** -52 * np.linalg.norm(step_c)
+
+
+@pytest.mark.parametrize("kind", ["exchange", "metropolis", "hamiltonian"])
+def test_tnvmc_graph_replays_match_eager_steps(cuda, kind):
+    """The proposal steps replayed as one CUDA graph move the chains as
+    the same steps launched one by one (``_mh_step`` in a loop), from the
+    same generator seed; a second call replays the captured graph with new
+    parameters, and a new sampler gets a graph of its own."""
+    from quimb_torch.experimental import (
+        ExchangeSampler,
+        HamiltonianSampler,
+        MetropolisHastingsSampler,
+        TNVMC,
+    )
+    from quimb_torch.operator import heisenberg_from_edges
+
+    psi = quimb_torch.PEPS_rand(3, 3, 2, seed=4, dtype="float64")
+    edges = [(i * 3 + j, i * 3 + j + 1) for i in range(3) for j in range(2)]
+    edges += [(i * 3 + j, i * 3 + j + 3) for i in range(2) for j in range(3)]
+    H = heisenberg_from_edges(edges)
+    make = {
+        "exchange": lambda: ExchangeSampler(9, nchains=32, seed=2),
+        "metropolis": lambda: MetropolisHastingsSampler(9, nchains=32,
+                                                        seed=2),
+        "hamiltonian": lambda: HamiltonianSampler.from_ham(H, 9, nchains=32,
+                                                           seed=2),
+    }[kind]
+    def eager(vmc, params, n):
+        configs = vmc._configs(vmc.sampler.configs)
+        gen = vmc.sampler._generator(configs.device)
+        p = torch.abs(vmc._log_amp_batch(params, configs)) ** 2
+        for _ in range(n):
+            configs, p = vmc._mh_step(params, configs, p, gen)
+        vmc.sampler.configs = configs
+        return configs
+
+    runs = []
+    for sample in (TNVMC._sample_batch, eager):
+        vmc = TNVMC(psi, H, sampler=make(), nchains=32)
+        first = sample(vmc, vmc.params, 25)
+        vmc.params = [p * 1.1 for p in vmc.params]
+        second = sample(vmc, vmc.params, 25)
+        runs.append((first, second, vmc._graph))
+    assert runs[0][2] is not None and runs[1][2] is None
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    # a new sampler: a new capture, its chains as its own eager steps
+    vmc = TNVMC(psi, H, sampler=make(), nchains=32)
+    vmc._sample_batch(vmc.params, 25)
+    old = vmc._graph
+    vmc.sampler = make()
+    got = vmc._sample_batch(vmc.params, 25)
+    assert vmc._graph[3] is not old[3]
+    ref = TNVMC(psi, H, sampler=make(), nchains=32)
+    assert torch.equal(got, eager(ref, ref.params, 25))
+
+
+def test_builders_follow_the_default_dtype_on_card(cuda):
+    """Under ``default_dtype`` the builders make tensors of that dtype on
+    the card, and the stack unwinds."""
+    from quimb_torch.config import default_dtype, get_default_dtype
+    from quimb_torch.gen.rand import rand_ket
+
+    with default_dtype("complex64"):
+        assert rand_ket(8, seed=1).dtype == torch.complex64
+        # random MPS take the real counterpart, as quimb_tpu's
+        psi = quimb_torch.MPS_rand_state(6, 4, seed=1)
+        assert psi.dtype == torch.float32 and psi[0].data.is_cuda
+        with default_dtype("float32"):
+            peps = quimb_torch.PEPS.rand(2, 2, 2, seed=1)
+            assert peps.dtype == torch.float32 and peps[0, 0].data.is_cuda
+            # the circuit's start state is host numpy until a gate
+            circ = quimb_torch.Circuit(3)
+            assert str(circ.psi.dtype).replace("torch.", "") == "float32"
+    assert get_default_dtype() == torch.complex128
+    assert quimb_torch.MPS_rand_state(4, 2, seed=1).dtype == torch.float64

@@ -304,3 +304,47 @@ def test_matrix_half_never_imports_jax_when_used():
         "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"
     )
     assert res.returncode == 0, res.stderr
+
+
+def test_slice16_modules_import_with_jax_blocked_and_no_matplotlib():
+    """With jax made unimportable, every module of the default-dtype
+    stack, experimental/ and the drawing code imports and runs a VMC step,
+    a CP decomposition, CTMRG and the marginals; neither ``import
+    quimb_torch`` nor these modules load matplotlib."""
+    res = _run(
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['quimb_tpu'] = None\n"
+        "import numpy as np, torch\n"
+        "import quimb_torch as qt\n"
+        "assert 'matplotlib' not in sys.modules, 'matplotlib at import'\n"
+        "import quimb_torch.config, quimb_torch.utils, quimb_torch.utils_plot\n"
+        "import quimb_torch.schematic, quimb_torch.tensor.drawing\n"
+        "from quimb_torch.experimental import (autojittn, cp_decomp,\n"
+        "    merabuilder, misc, tn_marginals, tnvmc)\n"
+        "import quimb_torch.experimental as ex\n"
+        "from quimb_torch.operator import heisenberg_from_edges\n"
+        "assert 'matplotlib' not in sys.modules, 'matplotlib imported'\n"
+        "with qt.config.default_dtype('float32'):\n"
+        "    assert qt.tensor.MPS_rand_state(3, 2, device='cpu').dtype == "
+        "torch.float32\n"
+        "rng = np.random.default_rng(0)\n"
+        "arrs = [[torch.as_tensor(rng.standard_normal([2] * sum((i < 1, "
+        "j < 1, i > 0, j > 0)) + [2])) for j in range(2)] for i in range(2)]\n"
+        "psi = qt.PEPS(arrs, shape='urdlp')\n"
+        "H = heisenberg_from_edges([(0, 1), (2, 3), (0, 2), (1, 3)])\n"
+        "vmc = ex.TNVMC(psi, H, nchains=8)\n"
+        "vmc.run(1, progbar=False, burn_in=2)\n"
+        "t = qt.Tensor(torch.ones(2, 2, 2, dtype=torch.float64), "
+        "inds=('a', 'b', 'c'))\n"
+        "ex.cp_decompose(t, 1, steps=3)\n"
+        "T, A, C = ex.classical_ising_T_A_C(0.4, device='cpu')\n"
+        "ex.ctmrg_partition_function(T, A, C, 6, 4)\n"
+        "tn = qt.TN3D_classical_ising_partition_function(2, 2, 2, beta=0.2, "
+        "device='cpu')\n"
+        "ex.compute_all_marginals_via_autodiff(tn, sorted(tn.inner_inds())[:2])\n"
+        "ex.TTN_randtree_rand(range(4), 2, seed=1, device='cpu')\n"
+        "assert qt.LRU is quimb_torch.utils.LRU and callable(qt.plot)\n"
+        "assert 'matplotlib' not in sys.modules, 'matplotlib when used'\n"
+    )
+    assert res.returncode == 0, res.stderr

@@ -152,8 +152,17 @@ def test_builder_terms_matrices_and_transforms():
         j.evaluate_exact_configs(amp_c), abs=1e-12)
     np.testing.assert_array_equal(top.get_mat("sy"), jop.get_mat("sy"))
     assert repr(t) == repr(j).replace("quimb_tpu", "quimb_torch")
-    with pytest.raises(NotImplementedError, match="16\\(f\\)"):
-        t.draw_state_machine()
+    # the state machine's text rendering: quimb_tpu's, line for line
+    import contextlib
+    import io
+
+    outs = []
+    for b in (t, j):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            trans = b.draw_state_machine()
+        outs.append((buf.getvalue(), [sorted(tr) for tr in trans]))
+    assert outs[0] == outs[1] and outs[0][0]
 
 
 def _matvec_check(b_j, dtype="float64", complex_x=False, seed=42):

@@ -327,8 +327,16 @@ def test_get_tn_opt_norm_fn_and_the_other_drivers(heis):
     for i in range(L):
         assert torch.allclose(out[out.site_tag(i)].data * 2,
                               ref[ref.site_tag(i)].data)
-    with pytest.raises(NotImplementedError, match="16\\(f\\)"):
-        ot.plot()
+    # the loss plot (matplotlib's Agg backend): the loss history, labelled
+    import matplotlib
+    import matplotlib.pyplot as plt
+
+    matplotlib.use("Agg")
+    fig, ax = ot.plot(hlines=(0.5,))
+    assert list(ax.lines[0].get_ydata()) == list(ot.losses)
+    assert ax.get_xlabel() == "iteration" and ax.get_ylabel() == "loss"
+    assert list(ax.lines[1].get_ydata()) == [0.5, 0.5]
+    plt.close(fig)
     for name in ("optimize_ipopt", "optimize_nlopt", "optimize_nevergrad"):
         with pytest.raises((ImportError, NotImplementedError)):
             getattr(ot, name)(2)

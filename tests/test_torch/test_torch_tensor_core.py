@@ -599,25 +599,55 @@ def test_isel_squeeze_astype_conj_and_pickle():
     _assert_close(back, j)
 
 
-# -- deferred methods ----------------------------------------------------------
+# -- the once-deferred drawing methods ------------------------------------------
 
 
 DEFERRED = {
-    "draw": ("16", lambda tn: tn.draw()),
-    "graph": ("16", lambda tn: tn.graph()),
-    "draw_3d": ("16", lambda tn: tn.draw_3d()),
-    "visualize_tensors": ("16", lambda tn: tn.visualize_tensors()),
-    "tensor_draw": ("16", lambda tn: tn["I0"].draw()),
-    "tensor_visualize": ("16", lambda tn: tn["I0"].visualize()),
+    "draw": ("16", lambda tn: tn.draw(get="fig")),
+    "graph": ("16", lambda tn: tn.graph(get="fig")),
+    "draw_3d": ("16", lambda tn: tn.draw_3d(get="fig")),
+    "visualize_tensors": ("16", lambda tn: tn.visualize_tensors(
+        return_fig=True)),
+    "tensor_draw": ("16", lambda tn: tn["I0"].draw(get="fig")),
+    "tensor_visualize": ("16", lambda tn: tn["I0"].visualize(
+        return_fig=True)),
 }
+
+
+def _fig_signature(fig):
+    """Each axes' kind, its artist counts, its texts and (2D) the data of
+    its lines and point collections, rounded to 1e-10."""
+    sig = []
+    for ax in fig.axes:
+        entry = [ax.name, len(ax.lines), len(ax.collections),
+                 len(ax.patches), sorted(t.get_text() for t in ax.texts)]
+        if ax.name != "3d":
+            data = [ln.get_xydata().ravel() for ln in ax.lines]
+            data += [np.asarray(c.get_offsets()).ravel()
+                     for c in ax.collections]
+            entry.append(np.round(np.concatenate(data + [np.zeros(0)]),
+                                  10).tolist())
+        sig.append(entry)
+    return sig
 
 
 @pytest.mark.parametrize("name", sorted(DEFERRED))
 def test_deferred_methods_name_their_item(name):
-    item, call = DEFERRED[name]
-    tn = build(ttn, mps_arrays(L=4))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        call(tn)
+    """The drawing methods that ROADMAP item 16 deferred now draw what
+    quimb_tpu's draw, on matplotlib's Agg backend."""
+    import matplotlib
+    import matplotlib.pyplot as plt
+
+    matplotlib.use("Agg")
+    _, call = DEFERRED[name]
+    arrays = mps_arrays(L=4)
+    ft, fj = call(build(ttn, arrays)), call(build(jtn, arrays))
+    try:
+        assert _fig_signature(ft) == _fig_signature(fj)
+        assert any(ax.lines or ax.collections for ax in ft.axes)
+    finally:
+        plt.close(ft)
+        plt.close(fj)
 
 
 def _target(pkg, tn):
