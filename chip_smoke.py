@@ -323,11 +323,33 @@ failure:
    ``max_bond`` 32: log10 Z within 1e-10 relative of quimb_tpu's; (d)
    ``compute_all_marginals_via_autodiff`` of every bond of phase 22's
    3 x 3 x 3 Ising network against ``..._via_slicing`` within 1e-10. No
-   phase from 17 on launches a sandwich kernel.
+   phase from 17 to 29 launches a sandwich kernel;
+30. the multi-device layer (``quimb_torch.parallel``) in a one-rank NCCL
+   world on the card (NCCL runs no two ranks on one GPU): (a) (after phase
+   20) one DMRG2 sweep of the float64 L=128, chi=256 state under
+   ``shard_onto(get_mesh_2d())`` against one unsharded sweep, each from
+   its own copy, energies within 1e-12 relative, the sharded sweep
+   launching ``sandwich_f64`` at least ncv * restarts * (L - 1) times and
+   its environments DTensors on the card; the same on a float32 copy with
+   ``sandwich_tf32``; the busy share of one sharded sweep and the NCCL
+   kernels' share of it; (b) (last) ``ShardedSparseHam(ham_heis(20))``'s
+   matvec against ``SparseHam`` at 1e-12, ``eigh_lanczos_sharded``
+   against REFBASE at 1e-10 and ``expm_multiply_sharded`` over phase 11's
+   protocol against its <Z_0> at 1e-9; (c) phase 13's amplitude network
+   by ``contract_sliced`` over 16 slices batched on the card, and
+   ``amplitude(mesh=)``, against REFBASE at 1e-9, and ``sample(2,
+   seed=42, mesh=)`` against the unsharded per-sample draw; (d) phase 10's
+   complex128 quench, 4 steps under ``TEBD.shard_onto(get_mesh())``
+   against 4 unsharded, entropies within 1e-12; (e)
+   ``approx_spectral_sharded`` of tr(H^2) on (b)'s operator against the
+   unsharded ``construct_lanczos_tridiag`` on the same probes at 1e-10;
+   (f) ``dryrun_multichip(1)``. Each part's seconds, and the card's name
+   and power limit.
 
 The line before the last is the kernels' JSON summary, one entry per
-kernel with its launches on its paths (DMRG2 and ParallelDMRG for
-float32, DMRG2 and DMRG1 for float64; TEBD runs no hand-written kernel),
+kernel with its launches on its paths (DMRG2, ParallelDMRG and the
+sharded sweep of phase 30(a) for float32; DMRG2, DMRG1 and the sharded
+sweep for float64; TEBD runs no hand-written kernel),
 its time against the plain einsum (the one library call that computes
 the same product) and its bound. The exact core runs no hand-written
 kernel: its matvec is plain PyTorch, measured in phase 11; nor do the
@@ -1198,10 +1220,10 @@ def _tebd_reference():
     return np.asarray(ref["entropies"]), ref["err"]
 
 
-def _busy_share(fn):
-    """Device time over wall time of ``fn()``, the kernels that took most
-    of it and the count of device activities, from torch.profiler; None
-    for the share where the profiler saw no device time."""
+def _device_kernels(fn):
+    """The device time (us) of ``fn()``'s device activities by name, its
+    wall time (us) and the count of device activities, from
+    torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1217,6 +1239,14 @@ def _busy_share(fn):
             count += 1
             by_name[ev.name] = (by_name.get(ev.name, 0.0)
                                 + ev.time_range.elapsed_us())
+    return by_name, wall_us, count
+
+
+def _busy_share(fn):
+    """Device time over wall time of ``fn()``, the kernels that took most
+    of it and the count of device activities, from torch.profiler; None
+    for the share where the profiler saw no device time."""
+    by_name, wall_us, count = _device_kernels(fn)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return (busy / wall_us if busy > 0 else None), top, wall_us, count
@@ -4664,6 +4694,310 @@ def run_slice16():
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# -- phase 30: the multi-device layer in a one-rank NCCL world ----------------
+
+# the card's one rank: NCCL runs no two ranks on one GPU, so the mesh
+# layer runs in a one-rank world, where every block is whole and the
+# sharded paths do the unsharded arithmetic (multi-rank runs: the CPU
+# tests' 4-rank gloo worlds)
+SHARD_TOL = 1e-12
+SHARD_SLICES = 16
+SHARD_TEBD_STEPS = 4
+SHARD_SAMPLES = 2
+SHARD_EXPM_NCV = 32
+SHARD_EXACT_RESTARTS = 30
+SHARD_SLQ_R, SHARD_SLQ_K = 32, 40
+SHARD_SLQ_TOL = 1e-10
+
+
+def _power():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def _on_card_blocks(envs, what):
+    """Each DTensor environment's block on the card."""
+    if not all(e.to_local().is_cuda for e in envs if e is not None):
+        raise AssertionError(f"{what}: an environment block left the card")
+
+
+def run_sharded_dmrg(dmrg):
+    """Phase 30(a): one DMRG2 sweep of the float64 L=128, chi=256 state
+    under ``shard_onto(get_mesh_2d())`` against one unsharded sweep, each
+    from its own copy; then the same on a float32 copy. Returns the
+    sharded sweeps' kernel launches, by dtype."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    from quimb_torch.parallel import get_mesh_2d
+
+    t_phase = time.perf_counter()
+    state = dmrg.state
+    mesh, mesh_s = _timed(get_mesh_2d)
+    # NCCL sets up a communicator at a group's first collective: once for
+    # the world and each of the mesh's two axes, before the timed sweeps
+    _, warm_s = _timed(lambda: [dist.all_reduce(
+        torch.ones(1, device="cuda"), group=g)
+        for g in (None, mesh.get_group(0), mesh.get_group(1))])
+    print(f"phase 30: the mesh in {mesh_s:.3f} s, its NCCL communicators in "
+          f"{warm_s:.3f} s", flush=True)
+    print(f"phase 30: a {dist.get_world_size()}-rank {dist.get_backend()} "
+          f"world, mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} on "
+          f"{mesh.device_type}:{torch.cuda.current_device()}; {_power()}",
+          flush=True)
+    opts = dmrg.opts
+    min_launches = (max(2 * opts["local_eig_ncv"], opts["local_eig_ncv_floor"])
+                    * opts["local_eig_restarts"] * (L - 1))
+    launches = {}
+    for dtype in (torch.float64, torch.float32):
+        kernel = KERNEL_NAME[dtype]
+        H = quimb_torch.MPO_ham_heis(L, dtype=dtype, device="cuda")
+        p0 = state.astype(dtype)
+        ens, secs = {}, {}
+        for shard in (True, False):
+            engine = quimb_torch.DMRG2(H, bond_dims=CHI, cutoffs=0.0,
+                                       p0=p0.copy())
+            if shard:
+                engine.shard_onto(mesh)
+                sharded = engine
+            _reset_launches()
+            ens[shard], secs[shard] = _timed(lambda: engine.sweep(
+                "R", max_bond=CHI, cutoff=0.0, canonize=True))
+            if shard:
+                n = _sweep_launches(kernel, dict.fromkeys(ck.LAUNCHES, 0),
+                                    min_launches, "the sharded sweep")
+                launches[dtype] = n[kernel]
+        rel = abs(ens[True] - ens[False]) / abs(ens[False])
+        renv = sharded._build_right_envs()
+        _on_card_blocks(renv, "the sharded sweep")
+        bulk = renv[L // 2]
+        print(f"{dtype} sharded sweep R: {secs[True]:.3f} s, energy "
+              f"{ens[True]!r}, {kernel} launches {launches[dtype]} (at least "
+              f"{min_launches}); unsharded {secs[False]:.3f} s, energy "
+              f"{ens[False]!r}; relative {rel:.3e} (bound {SHARD_TOL:.0e}); "
+              f"a bulk right environment {tuple(bulk.shape)} placed "
+              f"{bulk.placements}, block {tuple(bulk.to_local().shape)} on "
+              f"{bulk.to_local().device}", flush=True)
+        if not (rel <= SHARD_TOL and isinstance(bulk.placements[1], Shard)):
+            raise AssertionError(f"{dtype}: the sharded sweep misses the "
+                                 f"unsharded one, or is not sharded")
+        if dtype == torch.float64:
+            _, again_s = _timed(lambda: sharded.sweep("L", max_bond=CHI,
+                                                      cutoff=0.0))
+            print(f"a second sharded float64 sweep (L): {again_s:.3f} s",
+                  flush=True)
+            by_name, wall_us, count = _device_kernels(lambda: sharded.sweep(
+                "R", max_bond=CHI, cutoff=0.0, canonize=False))
+            busy = sum(by_name.values())
+            # NCCL's kernels; in a one-rank world it launches none, and the
+            # collectives' share waits for a world of several cards
+            coll = sum(us for name, us in by_name.items()
+                       if name.startswith("nccl"))
+            print(f"a third sharded float64 sweep (R) under torch.profiler: "
+                  f"{wall_us / 1e6:.3f} s wall, {count} device activities, "
+                  f"busy share " + (f"{busy / wall_us:.4f}" if busy > 0
+                                    else "not measured")
+                  + f"; NCCL kernels {coll / 1e3:.3f} ms ("
+                  + (f"{coll / busy:.4f}" if busy > 0 else "not measured")
+                  + " of the device time)", flush=True)
+            for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+                print(f"  {us / 1e3:.3f} ms  {name[:100]}", flush=True)
+        del sharded, engine, renv, bulk
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(f"phase 30(a): {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def _sharded_exact(mesh, expm_z0):
+    """Phase 30(b): the exact 20-qubit core through the row-sharded
+    operator: its matvec against the port's SparseHam, its Lanczos energy
+    against REFBASE and Evolution's protocol (four Krylov updates of t =
+    1/4 on a 32-vector basis) against phase 11's <Z_0>."""
+    from quimb_torch import parallel as par
+
+    e_ref, _ = _exact_reference()
+    H = quimb_torch.ham_heis(EXACT_N, sparse=True)
+    Hs, build_s = _timed(lambda: par.ShardedSparseHam(H, mesh=mesh))
+    ell = core.SparseHam(H)
+    n = H.shape[0]
+    x = _cuda(np.random.default_rng(SEED).standard_normal(n), torch.float64)
+    xs = Hs.shard_vector(x)
+    want = ell.matvec(x)
+    rel = (torch.linalg.norm(Hs.matvec(xs)[:n] - want)
+           / torch.linalg.norm(want)).item()
+    ms = [_event_ms(f, (a,), reps=20) for f, a in
+          ((Hs.matvec, xs), (ell.matvec, x), (Hs.matvec, xs),
+           (ell.matvec, x))]
+    (lam, _), lanczos_s = _timed(lambda: par.eigh_lanczos_sharded(
+        Hs, ncv=EXACT_NCV, restarts=SHARD_EXACT_RESTARTS))
+    rel_e = abs(float(lam) - e_ref) / abs(e_ref)
+    bit0 = (np.arange(n) >> (EXACT_N - 1)) & 1
+    zdiag = 1.0 - 2.0 * bit0
+    psi = quimb_torch.computational_state("01" * (EXACT_N // 2)).reshape(-1)
+    zs, t0 = [], time.perf_counter()
+    for _ in range(EXACT_NT):
+        psi = par.expm_multiply_sharded(Hs, psi, t=-1j * EXACT_T / EXACT_NT,
+                                        ncv=SHARD_EXPM_NCV)
+        p = np.abs(psi) ** 2
+        zs.append(float(np.sum(p * zdiag) / np.sum(p)))
+    expm_s = time.perf_counter() - t0
+    dz = float(np.max(np.abs(np.asarray(zs) - np.asarray(expm_z0))))
+    print(f"ShardedSparseHam(ham_heis({EXACT_N})): built in {build_s:.3f} s "
+          f"({Hs.rows_per} rows x {Hs.V.shape[-1]} a rank, V placed "
+          f"{Hs.V.placements}, on {Hs.V.to_local().device}); matvec against "
+          f"SparseHam relative {rel:.3e} (bound {EXACT_MV_TOL:.0e}); ms "
+          f"sharded, SparseHam, sharded, SparseHam {[round(m, 4) for m in ms]}"
+          f"; eigh_lanczos_sharded {float(lam)!r} in {lanczos_s:.3f} s, "
+          f"relative to REFBASE {rel_e:.3e} (bound {EXACT_E_TOL:.0e}); four "
+          f"expm_multiply_sharded updates {expm_s:.3f} s, <Z_0> against "
+          f"phase 11's max {dz:.3e} (bound {EXACT_Z_TOL:.0e})", flush=True)
+    if not (rel <= EXACT_MV_TOL and rel_e <= EXACT_E_TOL
+            and dz <= EXACT_Z_TOL):
+        raise AssertionError("the row-sharded exact core misses its "
+                             "references")
+    return H, ell
+
+
+def _sharded_circuit(mesh):
+    """Phase 30(c): the 53-qubit amplitude by contract_sliced over 16
+    slices batched on the card and by amplitude(mesh=), against REFBASE;
+    sample(mesh=) against the unsharded per-sample draw of a fresh
+    circuit."""
+    from quimb_torch import parallel as par
+    from quimb_torch.tensor.circuit.core import _network_to_device
+
+    qasm = _circuit_qasm()
+    b0 = "0" * CIRC_N
+    want = _circuit_reference()[b0]
+    tol = CIRC_AMP_TOL[torch.complex128]
+    circ = quimb_torch.tensor.Circuit.from_openqasm2_str(
+        qasm, dtype=torch.complex128)
+    tn = circ.amplitude(b0, rehearse=True)["tn"]
+    tn = _network_to_device(tn, circ.device)
+    sliced = par.choose_sliced_inds(tn, SHARD_SLICES)
+    nslices = math.prod(tn.ind_size(ix) for ix in sliced)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    amp, secs = _timed(lambda: complex(par.contract_sliced(
+        tn, sliced, mesh=mesh, optimize="auto")))
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    rel = abs(amp - want) / abs(want)
+    amp_mesh, mesh_s = _timed(lambda: circ.amplitude(b0, mesh=mesh))
+    rel_mesh = abs(amp_mesh - want) / abs(want)
+    print(f"53-qubit amp0 by contract_sliced over {len(sliced)} indices, "
+          f"{nslices} slices batched on the card: {amp!r} in {secs:.3f} s, "
+          f"peak {peak:.3f} GB, relative to REFBASE {rel:.3e}; "
+          f"amplitude(mesh=) {mesh_s:.3f} s, relative {rel_mesh:.3e} (bound "
+          f"{tol:.0e})", flush=True)
+    if not (nslices >= SHARD_SLICES and rel <= tol and rel_mesh <= tol):
+        raise AssertionError("the sliced 53-qubit amplitude misses REFBASE")
+    fresh = quimb_torch.tensor.Circuit.from_openqasm2_str
+    got, got_s = _timed(lambda: list(fresh(qasm).sample(
+        SHARD_SAMPLES, seed=CIRC_SEED, mesh=mesh)))
+    # the same per-sample route without the mesh (contract_opts given)
+    ref, ref_s = _timed(lambda: list(fresh(qasm).sample(
+        SHARD_SAMPLES, seed=CIRC_SEED, backend=None)))
+    print(f"sample({SHARD_SAMPLES}, seed={CIRC_SEED}, mesh=) {got_s:.3f} s "
+          f"{got}; the unsharded per-sample draw {ref_s:.3f} s "
+          f"{'equal' if got == ref else ref}", flush=True)
+    if got != ref:
+        raise AssertionError("sample(mesh=) differs from the unsharded draw")
+
+
+def _sharded_tebd(mesh):
+    """Phase 30(d): phase 10's complex128 quench, SHARD_TEBD_STEPS steps
+    under shard_onto(get_mesh()) against as many unsharded steps."""
+    opts = {"max_bond": TEBD_CHI, "cutoff": TEBD_CUTOFF}
+    ents, secs = {}, {}
+    for shard in (True, False):
+        tebd = quimb_torch.TEBD(quimb_torch.MPS_neel_state(
+            TEBD_L, dtype=torch.float64), quimb_torch.ham_1d_heis(TEBD_L),
+            split_opts=opts)
+        if shard:
+            tebd.shard_onto(mesh)
+        ents[shard] = []
+        t0 = time.perf_counter()
+        for k in range(1, SHARD_TEBD_STEPS + 1):
+            tebd.update_to(k * TEBD_DT, dt=TEBD_DT)
+            ents[shard].append(tebd.entropy(TEBD_L // 2))
+        torch.cuda.synchronize()
+        secs[shard] = time.perf_counter() - t0
+        if shard:
+            Bs = tebd._vidal[0]
+            if not (Bs.is_cuda and Bs.dtype == torch.complex128):
+                raise AssertionError("the sharded TEBD stack left the card")
+    dist = float(np.max(np.abs(np.subtract(ents[True], ents[False]))))
+    print(f"TEBD L={TEBD_L}, chi={TEBD_CHI}, {SHARD_TEBD_STEPS} steps "
+          f"sharded {secs[True]:.3f} s, unsharded {secs[False]:.3f} s; "
+          f"entropies apart at most {dist:.3e} (bound {SHARD_TOL:.0e})",
+          flush=True)
+    if not dist <= SHARD_TOL:
+        raise AssertionError("the sharded TEBD misses the unsharded one")
+
+
+def _sharded_slq(mesh, H, ell):
+    """Phase 30(e): tr(H^2) by approx_spectral_sharded on (b)'s operator
+    against the unsharded construct_lanczos_tridiag on the same probes."""
+    from quimb_torch import parallel as par
+    from quimb_torch.linalg.approx_spectral import (
+        _operator_matmat, _quadrature_weights, construct_lanczos_tridiag)
+
+    def f(x):
+        return x ** 2
+
+    (est, err), secs = _timed(lambda: par.approx_spectral_sharded(
+        ell, f, R=SHARD_SLQ_R, K=SHARD_SLQ_K, mesh=mesh, seed=SEED))
+    n = H.shape[0]
+    V0 = _cuda(np.random.default_rng(SEED).choice(
+        [-1.0, 1.0], size=(SHARD_SLQ_R, n)), torch.float64)
+    alpha, beta = construct_lanczos_tridiag(_operator_matmat(ell)[0], n,
+                                            SHARD_SLQ_K, V0, torch.float64)
+    w, tau2 = _quadrature_weights(alpha, beta)
+    want = float(np.mean(n * np.sum(to_host(tau2) * f(to_host(w)), axis=1)))
+    rel = abs(est - want) / abs(want)
+    exact = float(H.multiply(H).sum())
+    print(f"approx_spectral_sharded tr(H^2), R={SHARD_SLQ_R}, "
+          f"K={SHARD_SLQ_K}: {est!r} +- {err:.4g} in {secs:.3f} s; the "
+          f"unsharded recurrence on the same probes {want!r}, relative "
+          f"{rel:.3e} (bound {SHARD_SLQ_TOL:.0e}); exact {exact!r} (not "
+          f"gated)", flush=True)
+    if not rel <= SHARD_SLQ_TOL:
+        raise AssertionError("the sharded SLQ misses the unsharded one")
+
+
+def run_multidevice(expm_z0):
+    """Phase 30(b)-(f) in a one-rank NCCL world on the card; no sandwich
+    kernel but (f)'s DMRG sweep."""
+    import torch.distributed as dist
+
+    from quimb_torch import parallel as par
+
+    t_phase = time.perf_counter()
+    mesh = par.get_mesh()
+    secs = {}
+    t0 = time.perf_counter()
+    H, ell = _sharded_exact(mesh, expm_z0)
+    secs["b"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    for part, fn in (("c", lambda: _sharded_circuit(mesh)),
+                     ("d", lambda: _sharded_tebd(mesh)),
+                     ("e", lambda: _sharded_slq(mesh, H, ell)),
+                     ("f", lambda: par.dryrun_multichip(1))):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs[part] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    print(f"phase 30(b)-(f): {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items())
+          + f"); {_power()}", flush=True)
+
+
 def main():
     t_start = time.perf_counter()
     check_device()
@@ -4685,6 +5019,9 @@ def main():
     run_spectral(dmrg)
     run_complex_dmrg(dmrg)
     run_jacobi(dmrg)
+    sharded = run_sharded_dmrg(dmrg)
+    for dtype, n in sharded.items():
+        launches[dtype] += n
     del dmrg
     for dtype in TEBD_REAL:
         run_tebd_path(dtype)
@@ -4719,6 +5056,7 @@ def main():
     run_tnoptimizer()
     run_cluster_update()
     run_slice16()
+    run_multidevice(expm_z0)
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{

@@ -43,7 +43,10 @@ names resolve at the top level on first use, as quimb_tpu's do, with
 ``utils``' and ``utils_plot``'s. And ``experimental`` (variational Monte
 Carlo batched over chains, the CP decomposition, CTMRG, network marginals,
 the isometric network builder) and the drawing code, which imports
-matplotlib only when something is drawn. The default dtype is a
+matplotlib only when something is drawn. And ``parallel``, the
+multi-device layer on ``torch.distributed`` (a row-sharded operator,
+sliced contraction, ``DMRG.shard_onto`` and ``TEBD.shard_onto``), with
+the host pools ``get_thread_pool`` and ``get_mpi_pool``. The default dtype is a
 thread-local stack (``config.default_dtype``, ``QUIMB_TORCH_DTYPE``) that
 every builder reads when called.
 Every builder and entry point
@@ -97,13 +100,15 @@ __all__ = [*_tensor_all, *_linalg_all, "Evolution", "computational_state",
 _LAZY_MODULES = ("core", "calc", "evo", "gen.states", "gen.operators",
                  "gen.rand", "linalg.base_linalg", "linalg.approx_spectral",
                  "linalg.rand_linalg", "gates", "operator", "utils",
-                 "utils_plot")
+                 "utils_plot", "parallel.pools")
 _LAZY_INDEX = {}
 
 
 def __getattr__(name):
     import importlib
 
+    if name == "parallel":
+        return importlib.import_module(f"{__name__}.parallel")
     if not _LAZY_INDEX:
         for modname in _LAZY_MODULES:
             mod = importlib.import_module(f"{__name__}.{modname}")

@@ -720,12 +720,10 @@ class Circuit(CircuitBase):
         as a Python complex. The network is fixed to ``b`` and simplified
         on the host, then contracted on ``self.device`` (on the host with
         ``backend="numpy"``). With ``rehearse`` returns the simplified
-        network and its contraction expression instead."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "Circuit.amplitude(mesh=...) is not ported to quimb_torch "
-                "yet: ROADMAP item 18"
-            )
+        network and its contraction expression instead. With ``mesh`` (a
+        ``DeviceMesh`` of :mod:`quimb_torch.parallel`) every rank simplifies
+        the same network and contracts its slices of it, on
+        ``self.device`` (:func:`~quimb_torch.parallel.contract_tn_mesh`)."""
         if isinstance(b, str):
             b = tuple(int(x) for x in b)
         self._maybe_init_storage()
@@ -743,6 +741,12 @@ class Circuit(CircuitBase):
                 "tn": psi,
                 "tree": psi.contraction_info(optimize=optimize),
             }
+        if mesh is not None:
+            from ...parallel.mesh import contract_tn_mesh
+
+            psi = _network_to_device(psi, self.device)
+            return complex(to_host(contract_tn_mesh(
+                psi, mesh=mesh, optimize=optimize)).item())
         return complex(to_host(
             self._contract(psi, backend, optimize=optimize)).item())
 
@@ -808,12 +812,9 @@ class Circuit(CircuitBase):
         host array, normalized to sum to 1 (reference
         ``compute_marginal`` exact.py:780 returns the joint-scaled
         marginal; here the contraction is performed scale-free and the
-        conditional normalization is restored on the host)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "Circuit.compute_marginal(mesh=...) is not ported to "
-                "quimb_torch yet: ROADMAP item 18"
-            )
+        conditional normalization is restored on the host). With ``mesh``
+        every rank simplifies the same network and contracts its slices of
+        it, on ``self.device``."""
         fix = dict(fix or {})
         self._maybe_init_storage()
         key = (tuple(where), tuple(sorted(fix.items())))
@@ -822,7 +823,7 @@ class Circuit(CircuitBase):
             return cached
         region = tuple(sorted(set(where) | set(fix)))
 
-        if not contract_opts:
+        if mesh is None and not contract_opts:
             # ONE cached contraction expression per (region, where,
             # fix-keys): the fixed bits enter as basis vectors, which the
             # path absorbs first (equivalent to isel), so the per-sample
@@ -869,11 +870,18 @@ class Circuit(CircuitBase):
             # marginals are consumed normalized: the stripped global
             # exponent is dropped, the returned p is defined up to scale
             nm_lc.exponent = 0.0
-        data = self._contract(
-            nm_lc, contract_opts.pop("backend", None),
-            output_inds=kix, optimize=optimize, preserve_tensor=True,
-            renorm=True, **contract_opts,
-        ).data
+        if mesh is not None:
+            from ...parallel.mesh import contract_tn_mesh
+
+            nm_lc = _network_to_device(nm_lc, self.device)
+            data = contract_tn_mesh(nm_lc, mesh=mesh, output_inds=kix,
+                                    optimize=optimize)
+        else:
+            data = self._contract(
+                nm_lc, contract_opts.pop("backend", None),
+                output_inds=kix, optimize=optimize, preserve_tensor=True,
+                renorm=True, **contract_opts,
+            ).data
         p = _probabilities(data)
         total = p.sum()
         if total > 0:
@@ -974,12 +982,9 @@ class Circuit(CircuitBase):
                seed=None, optimize="auto", simplify_sequence="ADCRS",
                simplify_atol=1e-6, mesh=None, **contract_opts):
         """Generate ``C`` samples via chain-rule marginals with caching
-        (reference ``sample`` exact.py:1135)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "Circuit.sample(mesh=...) is not ported to quimb_torch "
-                "yet: ROADMAP item 18"
-            )
+        (reference ``sample`` exact.py:1135). With ``mesh`` each sample
+        draws its marginals one by one, each contracted sliced over the
+        mesh's ranks."""
         rng = np.random.default_rng(seed)
         if qubits is None:
             qubits = tuple(range(self.N))
@@ -989,7 +994,7 @@ class Circuit(CircuitBase):
             order[i:i + group_size]
             for i in range(0, len(order), group_size)
         ]
-        if C > 1 and not contract_opts:
+        if C > 1 and mesh is None and not contract_opts:
             # breadth-first: advance ALL samples one group at a time —
             # the C distinct-fix marginals of a group share one cached
             # contraction expression with the batch riding as an extra
@@ -1005,7 +1010,8 @@ class Circuit(CircuitBase):
                 p = self.compute_marginal(
                     grp, fix=fix, optimize=optimize,
                     simplify_sequence=simplify_sequence,
-                    simplify_atol=simplify_atol, **contract_opts,
+                    simplify_atol=simplify_atol, mesh=mesh,
+                    **contract_opts,
                 )
                 p = p / p.sum()
                 outcome = rng.choice(p.size, p=p)

@@ -76,8 +76,11 @@ def rank_simplify(tn, output_inds=None, inplace=False, equalize_norms=False,
         t = tensor_map[tid]
         t_inds = t.inds
 
-        # rank-0/1 tensors: absorb into any neighbor
-        neighbors = set()
+        # rank-0/1 tensors: absorb into any neighbor. An ordered set: the
+        # first of equal candidates wins, so the order of the network's
+        # maps, not the process's string hashes, breaks ties, and every
+        # process derives the same network
+        neighbors = oset()
         for ix in t_inds:
             neighbors.update(ind_map[ix])
         neighbors.discard(tid)
@@ -364,14 +367,15 @@ def loop_simplify(tn, cutoff=1e-12, max_loop_length=None, inplace=False,
     tensor_core.py:11346). Currently handles 2-cycles (double bonds
     between pairs are fused by rank_simplify) and triangle loops."""
     tn = tn if inplace else tn.copy()
-    # find triangles: three tensors pairwise connected
+    # find triangles: three tensors pairwise connected, in the order of
+    # the network's maps (ordered sets, as in rank_simplify)
     adj = {}
     for ix, tids in tn.ind_map.items():
         if len(tids) == 2:
             a, b = tuple(tids)
-            adj.setdefault(a, set()).add(b)
-            adj.setdefault(b, set()).add(a)
-    seen = set()
+            adj.setdefault(a, oset()).add(b)
+            adj.setdefault(b, oset()).add(a)
+    seen = {}
     for a in list(adj):
         for b in adj.get(a, ()):
             for c in adj.get(b, ()):
@@ -380,9 +384,9 @@ def loop_simplify(tn, cutoff=1e-12, max_loop_length=None, inplace=False,
                 tri = frozenset((a, b, c))
                 if tri in seen or len(tri) != 3:
                     continue
-                seen.add(tri)
+                seen[tri] = (a, b, c)
     # triangles are contracted if beneficial
-    for tri in seen:
+    for tri in seen.values():
         if not all(t in tn.tensor_map for t in tri):
             continue
         ts = [tn.tensor_map[t] for t in tri]

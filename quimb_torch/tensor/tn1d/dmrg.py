@@ -144,15 +144,16 @@ def _sandwich_operands(L, W1, W2, R):
     """The fusions laid out for ``out = sum_x A[x] @ theta @ B[x]``:
     A (w, M=(a,u), K1=(k,p)) and B (w, K2=(q,r), N=(v,b)), contiguous.
     With theta as (K1, K2), the output (M, N) reshapes to theta's own
-    shape because a, u, v, b range like k, p, q, r."""
-    cl, w, d = L.shape[0], W1.shape[1], W1.shape[2]
-    cr = R.shape[0]
+    shape because a, u, v, b range like k, p, q, r. The environments may
+    hold a block of their bra rows (a of L, b of R: a sharded sweep's
+    rows of M and columns of N, each block contiguous)."""
+    (a, _, k), (_, w, d, _), (b, _, r) = L.shape, W1.shape, R.shape
     # (a,x,u,p,k) -> (x,a,u,k,p)
     A = _fuse_lw(L, W1).permute(1, 0, 2, 4, 3)
     # (x,v,q,b,r) -> (x,q,r,v,b)
     B = _fuse_wr(W2, R).permute(0, 2, 4, 1, 3)
-    return (A.reshape(w, cl * d, cl * d).contiguous(),
-            B.reshape(w, d * cr, d * cr).contiguous())
+    return (A.reshape(w, a * d, k * d).contiguous(),
+            B.reshape(w, d * r, d * b).contiguous())
 
 
 def _heff_matvec_1site(LW, R, theta):
@@ -165,31 +166,35 @@ def _sandwich_operands_1site(L, W, R):
     """The one-site operands of ``out = sum_x A[x] @ theta @ B[x]``:
     A (w, M=(a,u), K1=(k,p)) as in :func:`_sandwich_operands` and
     B = R as (w, K2=r, N=b), contiguous. theta (k,p,r) is (K1, K2)."""
-    cl, w, d = L.shape[0], W.shape[1], W.shape[2]
+    (a, _, k), (_, w, d, _) = L.shape, W.shape
     A = torch.einsum("awk,wxup->xaukp", L, W)
-    return (A.reshape(w, cl * d, cl * d).contiguous(),
+    return (A.reshape(w, a * d, k * d).contiguous(),
             R.permute(1, 2, 0).contiguous())
 
 
-def _overlap_norm_2site(L, R, v):
+def _overlap_norm_2site(L, R, v, vb=None):
     """Exact ⟨ψ|ψ⟩ of the full MPS with 2-site tensor ``v`` (k,p,q,r),
     read off the environments' MPO identity channels: for a Schur-form
     MPO the left environment's channel 0 is the norm environment, and
-    the right environment's last channel likewise."""
+    the right environment's last channel likewise. For environments that
+    hold a block of their bra rows, ``vb`` is the same block of ``v``
+    (rows of k, columns of r) and the result that block's part."""
     nL = L[:, 0, :]
     nR = R[:, -1, :]
     t = torch.einsum("ak,kpqr->apqr", nL, v)
     t = torch.einsum("apqr,br->apqb", t, nR)
-    return torch.einsum("apqb,apqb->", torch.conj(v), t).real
+    return torch.einsum("apqb,apqb->", torch.conj(v if vb is None else vb),
+                        t).real
 
 
-def _overlap_norm_1site(L, R, v):
+def _overlap_norm_1site(L, R, v, vb=None):
     """1-site variant of :func:`_overlap_norm_2site`; v is (k,p,r)."""
     nL = L[:, 0, :]
     nR = R[:, -1, :]
     t = torch.einsum("ak,kpr->apr", nL, v)
     t = torch.einsum("apr,br->apb", t, nR)
-    return torch.einsum("apb,apb->", torch.conj(v), t).real
+    return torch.einsum("apb,apb->", torch.conj(v if vb is None else vb),
+                        t).real
 
 
 def _lanczos_ground(heff, theta0, K1, K2, ncv, restarts):
@@ -309,6 +314,53 @@ def _right_canonize_step(A_next, A):
     return newAnext, newA
 
 
+def _right_canonized(As):
+    """A right-canonical copy of the list state ``As`` (B-form), by LQ
+    from the right end, its first tensor normalized."""
+    As = list(As)
+    for i in range(len(As) - 1, 0, -1):
+        As[i - 1], As[i] = _right_canonize_step(As[i - 1], As[i])
+    As[0] = As[0] / torch.linalg.norm(torch.reshape(As[0], (-1,)))
+    return As
+
+
+class _LocalSweep:
+    """The steps of a sweep that :meth:`DMRG.shard_onto` distributes, on
+    one device: environments as plain tensors, every step on this
+    process. :class:`.dmrg_mesh.MeshSweep` has the same methods over the
+    ranks of a mesh."""
+
+    @staticmethod
+    def ones_env(A, side):
+        """The (1, 1, 1) environment past a chain end (``side`` 0 left,
+        1 right)."""
+        return torch.ones((1, 1, 1), dtype=A.dtype, device=A.device)
+
+    @staticmethod
+    def env_right(L, A, W):
+        """The left environment of the next site, absorbing A under W."""
+        return _env_step_right(L, torch.conj(A), W, A)
+
+    @staticmethod
+    def env_left(R, A, W):
+        """The right environment of the previous site."""
+        return _env_step_left(R, torch.conj(A), W, A)
+
+    @staticmethod
+    def solve_2site(*args, **kwargs):
+        return _local_solve_2site(*args, **kwargs)
+
+    @staticmethod
+    def solve_1site(*args, **kwargs):
+        return _local_solve_1site(*args, **kwargs)
+
+    @staticmethod
+    def share(fn):
+        """``fn()``: a tuple of tensors (a split, a gauge move) that every
+        rank must hold alike."""
+        return fn()
+
+
 def _mpo_has_identity_channels(Ws, tol=1e-10):
     """True when every MPO tensor has Schur (triangular FSM) form —
     first column ``[I, 0, ..]``ᵀ and last row ``[.., 0, I]`` — so that
@@ -419,6 +471,7 @@ class DMRG:
         self._W = [W.to(dtype) for W in self._W]
         self._A = [a.to(dtype) for a in A]
         self._sandwich = resolve_sandwich(device, dtype)
+        self._ops = _LocalSweep
         # with a Schur-form MPO the environments' identity channels give
         # ⟨ψ|ψ⟩ for free and the sweep energies are exact variational
         # Rayleigh quotients; without it, raw Ritz values
@@ -477,40 +530,63 @@ class DMRG:
     def energy(self):
         return self.energies[-1] if self.energies else None
 
+    # -- the mesh -----------------------------------------------------------
+
+    def shard_onto(self, mesh, axes=None):
+        """Distribute the sweeps over the ranks of ``mesh``, a
+        ``DeviceMesh`` of :mod:`quimb_torch.parallel` (``get_mesh_2d()``):
+        left environments are sharded on their bra chi over ``axes[0]``,
+        right environments over ``axes[1]`` (the mesh's first two axes by
+        default; one axis shards the left ones only), where the size
+        divides the axis, and replicated elsewhere. Each rank applies the
+        sandwich matvec to its rows of M and columns of N, and one
+        all-gather assembles the output; the Lanczos solve runs replicated,
+        the first rank's split (or QR / LQ move) is broadcast, and each
+        environment step sums the rank's rows and all-reduces them over
+        its axis (:class:`.dmrg_mesh.MeshSweep`). Site
+        tensors stay whole on every rank, so :attr:`state` is this rank's.
+        Every rank calls each method with the same arguments. On a one-rank
+        mesh every block is whole and the sweeps do the unsharded
+        arithmetic."""
+        from .dmrg_mesh import MeshSweep
+
+        if self._cyc is not None:
+            raise NotImplementedError("the ring engine's sweeps are not "
+                                      "sharded: shard_onto takes an open "
+                                      "chain")
+        if axes is None:
+            axes = tuple(mesh.mesh_dim_names[:2])
+        if len(axes) == 1:
+            axes = (axes[0], None)
+        self._ops = MeshSweep(mesh, axes, self._A[0])
+        self._A = list(self._ops.share(lambda: [a.clone() for a in self._A]))
+        return self
+
     def _right_canonize_all(self):
         """Bring all sites into right-canonical form (B-form)."""
-        for i in range(self.L - 1, 0, -1):
-            self._A[i - 1], self._A[i] = _right_canonize_step(
-                self._A[i - 1], self._A[i]
-            )
-        a0 = self._A[0]
-        self._A[0] = a0 / torch.linalg.norm(torch.reshape(a0, (-1,)))
+        self._A = list(self._ops.share(lambda: _right_canonized(self._A)))
 
-    def _ones_env(self):
-        A = self._A[0]
-        return torch.ones((1, 1, 1), dtype=A.dtype, device=A.device)
+    def _ones_env(self, side=0):
+        return self._ops.ones_env(self._A[0], side)
 
     def _build_right_envs(self):
         """Right environments renv[j] = contraction of sites >= j, for
         the j >= bsz a right sweep reads."""
         L = self.L
         renv = [None] * (L + 1)
-        renv[L] = self._ones_env()
+        renv[L] = self._ones_env(1)
         for j in range(L - 1, self.bsz - 1, -1):
-            A = self._A[j]
-            renv[j] = _env_step_left(renv[j + 1], torch.conj(A),
-                                     self._W[j], A)
+            renv[j] = self._ops.env_left(renv[j + 1], self._A[j], self._W[j])
         return renv
 
     def _build_left_envs(self):
         """Left environments lenv[j] = contraction of sites < j, for the
         j <= L - bsz a left sweep reads."""
         lenv = [None] * (self.L + 1)
-        lenv[0] = self._ones_env()
+        lenv[0] = self._ones_env(0)
         for j in range(self.L - self.bsz):
-            A = self._A[j]
-            lenv[j + 1] = _env_step_right(lenv[j], torch.conj(A),
-                                          self._W[j], A)
+            lenv[j + 1] = self._ops.env_right(lenv[j], self._A[j],
+                                              self._W[j])
         return lenv
 
     def _solve_opts(self):
@@ -531,68 +607,68 @@ class DMRG:
                       solve_opts):
         """The local update at site i of a right sweep; returns its
         energy and the left environment of site i + 1."""
+        ops = self._ops
         if self.bsz == 2:
             theta0 = torch.einsum("kpc,cqr->kpqr", self._A[i],
                                   self._A[i + 1])
-            en, theta = _local_solve_2site(
+            en, theta = ops.solve_2site(
                 lenv, self._W[i], self._W[i + 1], renv[i + 2], theta0,
                 **solve_opts,
             )
-            self._A[i], self._A[i + 1], _ = _split_2site(
+            self._A[i], self._A[i + 1] = ops.share(lambda: _split_2site(
                 theta, max_bond=max_bond, cutoff=cutoff, absorb="right",
-                method=method)
+                method=method)[:2])
         else:
-            en, theta = _local_solve_1site(
+            en, theta = ops.solve_1site(
                 lenv, self._W[i], renv[i + 1], self._A[i], **solve_opts)
             if i < self.L - 1:
                 # move the gauge right: theta = Q R, R into site i + 1
                 l, p, r = theta.shape
-                Q, _, Rf = decomp.qr_stabilized(
-                    torch.reshape(theta, (l * p, r)))
+                Q, Rf = ops.share(lambda: decomp.qr_stabilized(
+                    torch.reshape(theta, (l * p, r)))[::2])
                 self._A[i] = torch.reshape(Q, (l, p, Q.shape[-1]))
                 self._A[i + 1] = torch.einsum("ck,kpr->cpr", Rf,
                                               self._A[i + 1])
             else:
                 self._A[i] = theta
-        A = self._A[i]
-        return en, _env_step_right(lenv, torch.conj(A), self._W[i], A)
+        return en, ops.env_right(lenv, self._A[i], self._W[i])
 
     def _update_left(self, i, lenvs, renv, max_bond, cutoff, method,
                      solve_opts):
         """The local update at site i of a left sweep; returns its energy
         and the right environment of site i + bsz - 1."""
+        ops = self._ops
         if self.bsz == 2:
             theta0 = torch.einsum("kpc,cqr->kpqr", self._A[i],
                                   self._A[i + 1])
-            en, theta = _local_solve_2site(
+            en, theta = ops.solve_2site(
                 lenvs[i], self._W[i], self._W[i + 1], renv, theta0,
                 **solve_opts,
             )
-            self._A[i], self._A[i + 1], _ = _split_2site(
+            self._A[i], self._A[i + 1] = ops.share(lambda: _split_2site(
                 theta, max_bond=max_bond, cutoff=cutoff, absorb="left",
-                method=method)
+                method=method)[:2])
         else:
-            en, theta = _local_solve_1site(
+            en, theta = ops.solve_1site(
                 lenvs[i], self._W[i], renv, self._A[i], **solve_opts)
             if i > 0:
                 # move the gauge left: theta = L Q, L into site i - 1
                 l, p, r = theta.shape
-                Lf, _, Q = decomp.lq_stabilized(
-                    torch.reshape(theta, (l, p * r)))
+                Lf, Q = ops.share(lambda: decomp.lq_stabilized(
+                    torch.reshape(theta, (l, p * r)))[::2])
                 self._A[i] = torch.reshape(Q, (Q.shape[0], p, r))
                 self._A[i - 1] = torch.einsum("kpr,rc->kpc",
                                               self._A[i - 1], Lf)
             else:
                 self._A[i] = theta
         j = i + self.bsz - 1
-        A = self._A[j]
-        return en, _env_step_left(renv, torch.conj(A), self._W[j], A)
+        return en, ops.env_left(renv, self._A[j], self._W[j])
 
     def _sweep_right(self, max_bond, cutoff):
         method = self._split_method(cutoff)
         solve_opts = self._solve_opts()
         renv = self._build_right_envs()
-        lenv = self._ones_env()
+        lenv = self._ones_env(0)
         energies = []
         for i in range(self.L - self.bsz + 1):
             en, lenv = self._update_right(i, lenv, renv, max_bond, cutoff,
@@ -605,7 +681,7 @@ class DMRG:
         method = self._split_method(cutoff)
         solve_opts = self._solve_opts()
         lenvs = self._build_left_envs()
-        renv = self._ones_env()
+        renv = self._ones_env(1)
         energies = []
         for i in range(self.L - self.bsz, -1, -1):
             en, renv = self._update_left(i, lenvs, renv, max_bond, cutoff,
@@ -698,6 +774,12 @@ class DMRGX(DMRG):
     def __init__(self, ham, p0, bond_dims, cutoffs=1e-8, bsz=2):
         super().__init__(ham, bond_dims=bond_dims, cutoffs=cutoffs, bsz=bsz,
                          p0=p0)
+
+    def shard_onto(self, mesh, axes=None):
+        """Not for DMRGX: its dense local solves build the whole effective
+        Hamiltonian on one device."""
+        raise NotImplementedError("DMRGX's dense local solves are not "
+                                  "sharded")
 
     def _local_solve_dense_overlap(self, lenv, Ws, renv, theta0):
         shape = theta0.shape
@@ -906,6 +988,34 @@ def _dmrg_form_local_ops(self, i):
                        dim=1)
 
 
+def _dmrg_print_energy_info(self, Heff=None, loc_gs=None):
+    """Print the state's energy and, given a local operator and vector,
+    the local one (reference ``print_energy_info`` dmrg.py:647)."""
+    psi = self.state
+    full_en = complex((psi.H @ self.ham.apply(psi)) / (psi.H @ psi)).real
+    site_en = "N/A"
+    if Heff is not None and loc_gs is not None:
+        v = torch.reshape(torch.as_tensor(loc_gs, device=Heff.device), (-1,))
+        site_en = complex(torch.vdot(v, Heff @ v)).real
+    print(f"Sweep {len(self.energies) + 1} -- fullE={full_en} "
+          f"siteE={site_en}")
+
+
+def _dmrg_print_norm_info(self, i=None):
+    """Print the state's norm and the sites' (or site ``i``'s) squared
+    norms (reference ``print_norm_info`` dmrg.py:662)."""
+    psi = self.state
+    full_n = complex(psi.H @ psi).real
+    if i is None:
+        site_norm = [float(torch.vdot(a.reshape(-1), a.reshape(-1)).real)
+                     for a in self._A]
+    else:
+        a = self._A[i].reshape(-1)
+        site_norm = float(torch.vdot(a, a).real)
+    print(f"Sweep {len(self.energies) + 1} -- fullN={full_n} "
+          f"siteN={site_norm}")
+
+
 def _dmrg_post_check(self, i, Neff, loc_gs, loc_en, loc_gs_old):
     """Open-chain sweeps keep exact orthogonality: nothing to correct
     (reference ``post_check`` dmrg.py:734)."""
@@ -915,4 +1025,6 @@ def _dmrg_post_check(self, i, Neff, loc_gs, loc_en, loc_gs_old):
 DMRG.sweep_right = _dmrg_sweep_right
 DMRG.sweep_left = _dmrg_sweep_left
 DMRG.form_local_ops = _dmrg_form_local_ops
+DMRG.print_energy_info = _dmrg_print_energy_info
+DMRG.print_norm_info = _dmrg_print_norm_info
 DMRG.post_check = _dmrg_post_check

@@ -23,7 +23,13 @@ A ring (a cyclic :class:`LocalHam1D`) evolves a cyclic MPS on the
 sequential path: its odd sweep also gates the wrap bond ``(L - 1, 0)``,
 and each bond is the MPS object's own reduce-split move
 (:meth:`~.core.MatrixProductState.gate_split_`), as in quimb_tpu.
-``TEBD.shard_onto`` is not ported (ROADMAP queue 1, item 18).
+
+``TEBD.shard_onto(mesh)`` splits the fused path's stacks over the ranks of
+a mesh of :mod:`quimb_torch.parallel`: each rank holds a contiguous block
+of sites and the weights at its edges, and updates the bonds whose left
+site it owns; a bond that straddles two ranks takes its right site from
+the neighbour and sends the updated site and weight back (two all-gathers
+a parity sweep).
 """
 
 import numpy as np
@@ -31,8 +37,21 @@ import torch
 
 from ...ops import decomp
 from ...ops.backend import complex_dtype, resolve_device, to_device, to_host
+from ...parallel.mesh import _all_gather, _all_reduce, _broadcast
 from .core import _arrays_to_mps, _mps_uniform_arrays, expec_TN_1D
 from .dmrg import _right_canonize_step
+
+
+def _as_real(x):
+    """A real view of ``x`` (complex entries as pairs)."""
+    return torch.view_as_real(x) if x.is_complex() else x
+
+
+def _from_real(flat, like):
+    """The entries of ``_as_real(like)`` in ``flat`` -> a tensor like
+    ``like``."""
+    x = flat.reshape(_as_real(like).shape)
+    return torch.view_as_complex(x.contiguous()) if like.is_complex() else x
 
 
 def _expm_herm(H, factor):
@@ -424,6 +443,7 @@ class TEBD:
         self.taus = []
         self._U_cache = {}
         self._idx = {}
+        self._shard = None
 
     @property
     def pt(self):
@@ -448,13 +468,15 @@ class TEBD:
         """The state's uniform arrays, out of the fused form if active."""
         self._flush_err()
         if self._vidal is not None:
-            self._pt = _vidal_to_mps(*self._vidal)
+            self._pt = _vidal_to_mps(*self._gathered_vidal())
             self._vidal = None
         return self._pt
 
     def _flush_err(self):
         if self._err_pending:
             total = torch.sum(torch.stack(self._err_pending))
+            if self._shard is not None:
+                total = _all_reduce(total, self._shard[0])
             self._trunc_err += float(total)
             self._err_pending = []
 
@@ -487,7 +509,7 @@ class TEBD:
         descending. From the fused weights when those are active: O(chi),
         no state taken out."""
         if self._vidal is not None:
-            s = to_host(self._vidal[1][i]).astype(np.float64)
+            s = to_host(self._weights(i)).astype(np.float64)
             return np.sort(s[s > 0])[::-1] ** 2
         if self.H.cyclic:
             return to_host(self._pt.schmidt_values(i))
@@ -511,11 +533,128 @@ class TEBD:
                 and self.split_opts.get("max_bond") is not None)
 
     def _ensure_vidal(self):
+        """The fused path's stacks ``(Bs, ls)``; under :meth:`shard_onto`
+        this rank's block: ``Bs[lo:hi]`` and ``ls[lo:hi + 1]``."""
         if self._vidal is None:
-            self._vidal = _mps_to_vidal(self._pt,
-                                        int(self.split_opts["max_bond"]))
+            self._vidal = self._own_block(_mps_to_vidal(
+                self._pt, int(self.split_opts["max_bond"])))
             self._pt = None
         return self._vidal
+
+    # -- the sharded fused path ----------------------------------------------
+
+    def shard_onto(self, mesh, axis=None):
+        """Split the fused path's stacks over the ranks of ``mesh`` (a
+        ``DeviceMesh`` of :mod:`quimb_torch.parallel`) along its axis
+        ``axis`` (its first by default): each rank holds a contiguous block
+        of the chain's sites, with the Schmidt weights at both its edges,
+        and a parity sweep updates the bonds whose left site it owns as one
+        batch. For a bond that straddles two ranks the right site comes
+        from the neighbour (an all-gather of every block's first site) and
+        the updated site and weight go back (an all-gather of the
+        outgoing ones). The discarded weight is summed by an all-reduce
+        when read; :attr:`pt` gathers the blocks. Every rank calls each
+        method with the same arguments; a ring, or a run without
+        ``max_bond``, evolves replicated on every rank."""
+        from ...parallel.mesh import mesh_device
+
+        vidal = self._gathered_vidal() if self._vidal is not None else None
+        self._flush_err()
+        axis = mesh.mesh_dim_names[0] if axis is None else axis
+        group, p = mesh.get_group(axis), mesh.size(
+            mesh.mesh_dim_names.index(axis))
+        if self.L < p:
+            raise ValueError(f"a chain of {self.L} sites cannot be split "
+                             f"over {p} ranks")
+        if mesh_device(mesh) != torch.device(self._device):
+            raise ValueError(f"the mesh's rank is on {mesh_device(mesh)}, "
+                             f"the state on {self._device}")
+        edges = np.cumsum([0] + [len(b) for b in np.array_split(
+            np.arange(self.L), p)])
+        self._shard = (group, p, mesh.get_local_rank(axis), edges)
+        self._idx = {}
+        if vidal is not None:
+            self._vidal = self._own_block(vidal)
+        return self
+
+    def _own_block(self, vidal):
+        if self._shard is None:
+            return vidal
+        _, _, r, edges = self._shard
+        Bs, ls = vidal
+        lo, hi = edges[r], edges[r + 1]
+        return Bs[lo:hi].clone(), ls[lo:hi + 1].clone()
+
+    def _gathered_vidal(self):
+        """The whole stacks: every rank's block, gathered (zero-padded to
+        the largest block for the all-gather)."""
+        if self._shard is None:
+            return self._vidal
+        group, p, _, edges = self._shard
+        Bs, ls = self._vidal
+        nb = int(np.max(np.diff(edges)))
+        Bp = Bs.new_zeros((nb, *Bs.shape[1:]))
+        Bp[:Bs.shape[0]] = Bs
+        lp = ls.new_zeros((nb + 1, ls.shape[1]))
+        lp[:ls.shape[0]] = ls
+        Bg, lg = _all_gather(Bp, group), _all_gather(lp, group)
+        sizes = np.diff(edges)
+        return (torch.cat([B[:n] for B, n in zip(Bg, sizes)]),
+                torch.cat([lw[:n] for lw, n in zip(lg, sizes)]
+                          + [lg[-1][sizes[-1]][None]]))
+
+    def _weights(self, i):
+        """The Schmidt weights ``ls[i]``: on a sharded run, the first rank
+        that holds them broadcasts them."""
+        if self._shard is None:
+            return self._vidal[1][i]
+        group, _, r, edges = self._shard
+        owner = int(np.searchsorted(edges, i, side="right")) - 1
+        owner = min(owner, len(edges) - 2)
+        ls = self._vidal[1]
+        w = ls[i - edges[r]].clone() if r == owner else ls.new_empty(
+            ls.shape[1])
+        return _broadcast(w, group, src=owner)
+
+    def _sharded_sweep(self, parity, dt_frac):
+        """One parity sweep of this rank's bonds, the straddling bond's
+        right site and weight exchanged with the neighbour."""
+        group, p, r, edges = self._shard
+        Bs, ls = self._vidal
+        lo, hi = int(edges[r]), int(edges[r + 1])
+        n = hi - lo
+        own = [i for i in range(lo, min(hi, self.L - 1))
+               if (i - parity) % 2 == 0]
+        straddles = [(int(edges[k + 1]) - 1 - parity) % 2 == 0
+                     for k in range(p - 1)]
+        firsts = _all_gather(Bs[0], group)
+        if r < p - 1 and straddles[r]:
+            Bs = torch.cat([Bs, firsts[r + 1][None]])
+        if own:
+            try:
+                idx = self._idx[parity]
+            except KeyError:
+                idx = self._idx[parity] = torch.tensor(
+                    [i - lo for i in own], device=self._device)
+            Us = self._get_gates([(i, i + 1) for i in own],
+                                 dt_frac * self._dt)
+            err = _fused_parity_update(
+                Bs, ls, Us, idx, max_bond=int(self.split_opts["max_bond"]),
+                cutoff=self.split_opts.get("cutoff", 1e-10))
+        else:
+            err = ls.new_zeros(())
+        self._err_pending.append(err)
+        # the straddling bond's right site and weight go back
+        out = torch.cat([_as_real(Bs[n]).reshape(-1), ls[n]]) \
+            if r < p - 1 and straddles[r] else \
+            ls.new_zeros(_as_real(Bs[0]).numel() + ls.shape[1])
+        back = _all_gather(out, group)
+        Bs = Bs[:n]
+        if r > 0 and straddles[r - 1]:
+            cut = _as_real(Bs[0]).numel()
+            Bs[0] = _from_real(back[r - 1][:cut], Bs[0])
+            ls[0] = back[r - 1][cut:]
+        self._vidal = (Bs, ls)
 
     def _pair_index(self, parity):
         try:
@@ -528,6 +667,9 @@ class TEBD:
     def _fused_sweep(self, parity, dt_frac):
         """One parity sweep as one batched gate + split of its bonds."""
         Bs, ls = self._ensure_vidal()
+        if self._shard is not None:
+            self._sharded_sweep(parity, dt_frac)
+            return
         pairs = [(i, i + 1) for i in range(parity, self.L - 1, 2)]
         Us = self._get_gates(pairs, dt_frac * self._dt)
         self._err_pending.append(_fused_parity_update(

@@ -197,11 +197,25 @@ def test_complex64_amplitude():
 
 
 def test_later_work_names_its_item():
+    """Item 18 is done: ``mesh=`` on a one-rank gloo world's mesh gives
+    quimb_tpu's amplitude, marginal and samples on its 8-device mesh."""
+    import torch.distributed as dist
+    from quimb_tpu.parallel import get_mesh as jget_mesh
+    from quimb_torch.parallel import get_mesh
+
     t, j = _brickwork(4, 2)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        t.amplitude("0000", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 18"):
-        list(t.sample(2, mesh=object()))
+    jmesh, mesh = jget_mesh(8), get_mesh(device="cpu")
+    try:
+        amp = t.amplitude("0110", mesh=mesh)
+        p = t.compute_marginal((0, 2), mesh=mesh)
+        samples = list(t.sample(5, seed=3, mesh=mesh))
+    finally:
+        dist.destroy_process_group()
+    want = complex(np.asarray(j.amplitude("0110", mesh=jmesh)).item())
+    assert abs(amp - want) <= 1e-12
+    np.testing.assert_allclose(p, np.asarray(j.compute_marginal(
+        (0, 2), mesh=jmesh)).reshape(-1), rtol=0, atol=1e-12)
+    assert samples == list(j.sample(5, seed=3, mesh=jmesh))
     # CircuitDense is ported: the same gates give quimb_tpu's state
     d = ttn.CircuitDense(4, device="cpu")
     d.apply_gates(t.gates)

@@ -3,7 +3,8 @@ for float32, FP64 tensor cores for float64) against their plain version,
 small DMRG2, DMRG1, ParallelDMRG and TEBD runs against the CPU port (real
 and complex, chains and rings), the checked complex SVD, the exact layer's
 matvecs and solvers, the object layer, a circuit's amplitudes and samples,
-and the 2D layer's SimpleUpdate, energies and FullUpdate.
+and the 2D layer's SimpleUpdate, energies and FullUpdate; the sharded
+DMRG and the row-sharded exact core in a one-rank NCCL world.
 
 Every test here needs a GPU and skips without one. The file imports no
 JAX; on a GPU machine run it without the JAX setup of the test
@@ -1186,3 +1187,79 @@ def test_builders_follow_the_default_dtype_on_card(cuda):
             assert str(circ.psi.dtype).replace("torch.", "") == "float32"
     assert get_default_dtype() == torch.complex128
     assert quimb_torch.MPS_rand_state(4, 2, seed=1).dtype == torch.float64
+
+
+@pytest.fixture
+def nccl_world(cuda):
+    """A one-rank NCCL world on the card (``get_mesh`` starts it),
+    destroyed after the test."""
+    import torch.distributed as dist
+    from quimb_torch.parallel import get_mesh
+
+    mesh = get_mesh()
+    yield mesh
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("bsz", [2, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sharded_dmrg_on_card_equals_unsharded(nccl_world, dtype, bsz):
+    """DMRG under ``shard_onto(get_mesh_2d())`` in a one-rank NCCL world:
+    every block is whole, so its sweeps meet the unsharded ones at 1e-12,
+    and each of its matvecs launches the dtype's sandwich kernel."""
+    from torch.distributed.tensor import Shard
+
+    from quimb_torch.parallel import get_mesh_2d
+
+    L, chi = 16, 32
+    H = quimb_torch.MPO_ham_heis(L, dtype=dtype, device="cuda")
+    p0 = quimb_torch.MPS_rand_state(L, chi, seed=5, dtype=dtype,
+                                    device="cuda")
+    ens, launches = {}, {}
+    for shard in (True, False):
+        dmrg = quimb_torch.DMRG(H, bond_dims=chi, cutoffs=0.0, p0=p0.copy(),
+                                bsz=bsz)
+        if shard:
+            dmrg.shard_onto(get_mesh_2d())
+        before = dict(ck.LAUNCHES)
+        ens[shard] = [dmrg.sweep(d, max_bond=chi, cutoff=0.0, canonize=c)
+                      for d, c in (("R", True), ("L", False), ("R", False))]
+        torch.cuda.synchronize()
+        launches[shard] = ck.LAUNCHES[_KERNEL[dtype]] - before[_KERNEL[dtype]]
+        if shard:
+            renv = dmrg._build_right_envs()
+            bulk = renv[L // 2]
+            assert isinstance(bulk.placements[1], Shard)
+            assert all(e.to_local().is_cuda for e in renv if e is not None)
+    # the same arithmetic; only the layout of the all-reduced environments
+    # (contiguous, as NCCL takes them) can move the last bits
+    np.testing.assert_allclose(ens[True], ens[False], rtol=1e-12, atol=0)
+    # three sweeps of L - bsz + 1 solves, each of at least 4 matvecs (a
+    # one-site space at a chain end has dimension 1 * 2 * 2)
+    assert launches[True] == launches[False] >= 4 * 3 * (L - bsz + 1)
+
+
+def test_sharded_exact_core_on_card(nccl_world):
+    """The row-sharded operator in a one-rank NCCL world: its matvec
+    against ``SparseHam``, its Lanczos energy and Krylov expm against the
+    dense ones."""
+    import scipy.linalg as sla
+
+    from quimb_torch import parallel as par
+
+    H = quimb_torch.ham_heis(10, sparse=True)
+    Hs = par.ShardedSparseHam(H, mesh=nccl_world)
+    assert Hs.V.to_local().is_cuda and Hs.device.type == "cuda"
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(2**10),
+                        device="cuda")
+    want = core.SparseHam(H).matvec(x)
+    got = Hs.matvec(Hs.shard_vector(x))
+    assert got.is_cuda
+    assert float(torch.max(torch.abs(got - want))) <= 1e-12
+    dense = H.toarray()
+    lam, _ = par.eigh_lanczos_sharded(Hs, ncv=30, restarts=8)
+    assert abs(float(lam) - np.linalg.eigvalsh(dense)[0]) < 1e-9
+    v = np.random.default_rng(1).standard_normal(2**10)
+    y = par.expm_multiply_sharded(Hs, v, t=-0.4, ncv=40)
+    np.testing.assert_allclose(y, sla.expm(-0.4 * dense) @ v, rtol=0,
+                               atol=1e-10)

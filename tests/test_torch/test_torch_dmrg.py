@@ -237,6 +237,30 @@ def test_solve_matches():
         == [jdmrg._A[i].shape for i in range(10)]
 
 
+def test_print_info_matches(capsys):
+    """``print_energy_info`` and ``print_norm_info`` print quimb_tpu's
+    numbers for the same state."""
+    import re
+
+    jdmrg, tdmrg = _both_engines(8, 4, seed=6)
+    for dmrg in (jdmrg, tdmrg):
+        dmrg.sweep("R", max_bond=4, cutoff=0.0)
+        Heff = dmrg.form_local_ops(3)
+        # the block's own tensor: <theta|Heff|theta> = <psi|H|psi>, free
+        # of the bond gauges in which the two engines' sweeps differ
+        v = np.einsum("kpc,cqr->kpqr", *(np.asarray(dmrg._A[i])
+                                         for i in (3, 4))).reshape(-1)
+        dmrg.print_energy_info(Heff, v)
+        dmrg.print_norm_info()
+        dmrg.print_norm_info(2)
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 6
+    nums = [[float(x) for x in re.findall(r"-?\d+\.\d+(?:e-?\d+)?", line)]
+            for line in lines]
+    for j, t in zip(nums[:3], nums[3:]):
+        np.testing.assert_allclose(t, j, rtol=1e-10, atol=1e-12)
+
+
 def test_default_start_state():
     H = quimb_torch.MPO_ham_heis(8, dtype=torch.float32, device="cpu")
     dmrg = quimb_torch.DMRG2(H, bond_dims=4)

@@ -63,6 +63,9 @@ def test_import_never_imports_jax():
         "import quimb_torch.linalg.autoblock, quimb_torch.gates\n"
         "import quimb_torch.operator, quimb_torch.operator.configdevice\n"
         "import quimb_torch.operator.pepobuilder\n"
+        "import quimb_torch.parallel, quimb_torch.parallel.mesh\n"
+        "import quimb_torch.parallel.pools, quimb_torch.parallel.dryrun\n"
+        "import quimb_torch.tensor.tn1d.dmrg_mesh\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'optax' not in sys.modules, 'optax imported'\n"
         "assert 'quimb_tpu' not in sys.modules, 'quimb_tpu imported'\n"

@@ -1,12 +1,12 @@
 """The public names of quimb_torch's package indexes against quimb_tpu's,
 on the CPU: the top level (its ``__all__`` and its lazy index), ``linalg``,
-``tensor``, ``utils`` and ``experimental``. Every public name of a
-quimb_tpu index resolves in the port's, less the names stated below: left
-out on purpose (ROADMAP queue 1) or still to port (ROADMAP item 18). A
-later gap fails it, and so does a name on these lists that the port comes
-to hold (the list is then stale). And the two module trees: every module
-of quimb_tpu has its counterpart, less the Pallas kernels (ported as
-``ops/cuda_kernels.py``) and ``parallel/`` (item 18)."""
+``tensor``, ``utils``, ``experimental`` and ``parallel``. Every public name
+of a quimb_tpu index resolves in the port's, less the names stated below:
+left out on purpose (ROADMAP queue 1) or still to port (none since item
+18). A later gap fails it, and so does a name on these lists that the port
+comes to hold (the list is then stale). And the two module trees: every
+module of quimb_tpu has its counterpart, less the Pallas kernels (ported as
+``ops/cuda_kernels.py``)."""
 
 import importlib
 import inspect
@@ -28,12 +28,11 @@ LEFT_OUT = {
     "": {"sparse_to_bcoo", "models"},
     ".tensor": {"jax_register_pytree"},
 }
-#: names still to port: ROADMAP item 18, multi-device (the pools and the
-#: ``parallel`` package)
-TO_PORT = {
-    "": {"can_use_mpi_pool", "get_mpi_pool", "get_thread_pool", "parallel"},
-}
-SUBPACKAGES = ("", ".linalg", ".tensor", ".utils", ".experimental")
+#: names still to port: none (item 18, the last, brought the pools and
+#: the ``parallel`` package)
+TO_PORT = {}
+SUBPACKAGES = ("", ".linalg", ".tensor", ".utils", ".experimental",
+               ".parallel")
 
 
 def _public(mod, lazy=()):
@@ -58,8 +57,23 @@ def _lazy(pkg):
     return set(quimb_torch._LAZY_INDEX)
 
 
+def _import_common(sub):
+    """Import every module under ``sub`` that both packages have: an
+    imported submodule becomes an attribute of its package, so the names
+    compared must not depend on what this process ran before."""
+    root = sub.lstrip(".").replace(".", os.sep)
+    for rel in sorted(_tree("quimb_tpu") & _tree("quimb_torch")):
+        if root and not rel.startswith(root + os.sep):
+            continue
+        name = rel[:-len(".py")].replace(os.sep, ".")
+        name = name[:-len(".__init__")] if name.endswith("__init__") else name
+        for pkg in ("quimb_tpu", "quimb_torch"):
+            importlib.import_module(f"{pkg}.{name}".rstrip("."))
+
+
 @pytest.mark.parametrize("sub", SUBPACKAGES, ids=lambda s: s or "top")
 def test_index_names_match(sub):
+    _import_common(sub)
     j = importlib.import_module("quimb_tpu" + sub)
     t = importlib.import_module("quimb_torch" + sub)
     want = _public(j, _lazy(quimb_tpu) if sub == "" else ())
@@ -96,9 +110,4 @@ def _tree(pkg):
 
 def test_module_trees_match():
     missing = _tree("quimb_tpu") - _tree("quimb_torch")
-    assert sorted(missing) == sorted([
-        os.path.join("ops", "pallas_kernels.py"),
-        os.path.join("parallel", "__init__.py"),
-        os.path.join("parallel", "mesh.py"),
-        os.path.join("parallel", "pools.py"),
-    ])
+    assert sorted(missing) == [os.path.join("ops", "pallas_kernels.py")]
