@@ -303,7 +303,12 @@ failure:
    ``circ_ansatz_1D_brickwork(28, 8, seed=7)`` applied eagerly, the norm
    within 1e-12 of 1, the amplitudes of ``sample(4, seed=42)``'s strings
    and <ZZ> on qubits 13, 14 within 1e-10 of the lazy ``Circuit``'s; the
-   seconds a gate, the draw's seconds and the peak allocation;
+   seconds a gate, the draw's seconds and the peak allocation; then
+   ``xeb`` of those strings, which copies no more than 4 KiB from the card
+   (``torch.profiler``'s device-to-host bytes over the call, its
+   recording of copies proved by a 1 MiB control copy), and
+   ``simulate_counts(4, seed=42)``, equal to the counts of the strings
+   ``sample`` drew from the same |psi|^2 with the same seed, each timed;
 29. (last) variational Monte Carlo, CTMRG and marginals, held to quimb_tpu's
    float64 values from ``scripts/slice16_reference.py``: (a) ``TNVMC`` on
    the 6 x 6 open-boundary Heisenberg PEPS at D=4 (10,368 parameters, a
@@ -343,8 +348,14 @@ failure:
    against 4 unsharded, entropies within 1e-12; (e)
    ``approx_spectral_sharded`` of tr(H^2) on (b)'s operator against the
    unsharded ``construct_lanczos_tridiag`` on the same probes at 1e-10;
-   (f) ``dryrun_multichip(1)``. Each part's seconds, and the card's name
-   and power limit.
+   (f) ``dryrun_multichip(1)``; (g) ``DMRGX`` at L=12 (chi 8, two
+   sweeps from the Neel state) under ``shard_onto(get_mesh_2d())``, every
+   rank sweeping the whole chain, equal to the unsharded sweeps to the
+   last bit (quimb_tpu's ring raises under ``shard_onto``, so no ring is
+   sharded), and ``SpinHam1D(S=1/2).build_dense(12)`` on the card against
+   ``build_sparse(12)`` at 1e-12. Each part's seconds, and the card's
+   name and power limit. Phases 28(xeb, counts) and 30(g) launch no
+   sandwich kernel: this slice adds no kernel launch.
 
 The line before the last is the kernels' JSON summary, one entry per
 kernel with its launches on its paths (DMRG2, ParallelDMRG and the
@@ -371,7 +382,9 @@ import math
 import re
 import statistics
 import subprocess
+import tempfile
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -1315,7 +1328,7 @@ def run_tebd_path(dtype):
     if not all(t.data.is_cuda for t in psi0):
         raise AssertionError("MPS_neel_state with no device is not on the GPU")
 
-    warm = quimb_torch.TEBD(psi0, H, split_opts=opts)
+    warm = quimb_torch.TEBD(psi0, H, split_opts=opts, progbar=False)
     t0 = time.perf_counter()
     warm.update_to(2 * TEBD_DT, dt=TEBD_DT)
     torch.cuda.synchronize()
@@ -1324,7 +1337,7 @@ def run_tebd_path(dtype):
 
     _reset_launches()
     redos = dict(decomp.SVD_REDOS)
-    tebd = quimb_torch.TEBD(psi0, H, split_opts=opts)
+    tebd = quimb_torch.TEBD(psi0, H, split_opts=opts, progbar=False)
     entropies, seconds = [], []
     for k in range(1, TEBD_STEPS + 1):
         t0 = time.perf_counter()
@@ -1432,6 +1445,36 @@ def _timed(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def _d2h_bytes(fn, attempts=3):
+    """(fn(), the bytes torch.profiler saw copied from the card to the
+    host during it): the trace's device-to-host copies, less a 1 MiB
+    control copy made after ``fn()``. A session whose trace lacks the
+    control copy is run again, ``fn()`` with it, and after ``attempts``
+    such sessions the run fails: on the card the first session after the
+    earlier phases' recorded no device activity at all, the next one
+    every copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    control = torch.zeros(2**17, dtype=torch.float64, device="cuda")
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            control.cpu()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(trace))
+            events = json.loads(trace.read_text())["traceEvents"]
+        copied = sum(int(e.get("args", {}).get("bytes", 0)) for e in events
+                     if e.get("cat") == "gpu_memcpy"
+                     and "DtoH" in e.get("name", ""))
+        if copied >= 2**20:
+            return out, copied - 2**20
+    raise AssertionError(f"torch.profiler recorded no 1 MiB control copy "
+                         f"in {attempts} sessions")
 
 
 def _on_card(what, t, dtype):
@@ -2679,7 +2722,8 @@ def run_ring_tebd():
     H = quimb_torch.ham_1d_heis(TEBD_L, cyclic=True)
     _reset_launches()
     tebd = quimb_torch.TEBD(psi0, H, split_opts={"max_bond": TEBD_CHI,
-                                                 "cutoff": TEBD_CUTOFF})
+                                                 "cutoff": TEBD_CUTOFF},
+                            progbar=False)
     entropies, seconds = [], []
     for k in range(1, RING_TEBD_STEPS + 1):
         t0 = time.perf_counter()
@@ -4267,6 +4311,9 @@ CDENSE_N, CDENSE_DEPTH, CDENSE_SEED, CDENSE_SAMPLES = 28, 8, 7, 4
 # dense state passes 108 gates, each a rounding of 2**28 entries); the
 # norm of the state
 CDENSE_AMP_TOL, CDENSE_NORM_TOL = 1e-10, 1e-12
+# xeb reads one number and sends the strings' indices: a few bytes, far
+# below the 2 GiB of |psi|^2
+CDENSE_XEB_BYTES = 4096
 
 
 def run_circuit_dense():
@@ -4308,6 +4355,24 @@ def run_circuit_dense():
     if not (abs(nrm - 1) <= CDENSE_NORM_TOL and rel <= CDENSE_AMP_TOL
             and dzz <= CDENSE_AMP_TOL):
         raise AssertionError("CircuitDense misses the lazy Circuit")
+    # CircuitBase's xeb keeps |psi|^2 on the card and reads one number;
+    # simulate_counts draws as sample does, from the same host |psi|^2
+    xeb, xsecs = _timed(lambda: dense.xeb(samples))
+    (xeb_p, copied), psecs = _timed(lambda: _d2h_bytes(
+        lambda: dense.xeb(samples)))
+    counts, csecs = _timed(lambda: dense.simulate_counts(CDENSE_SAMPLES,
+                                                         seed=SEED))
+    print(f"CircuitDense xeb of the {CDENSE_SAMPLES} strings: {xeb!r} in "
+          f"{xsecs:.3f} s; again under torch.profiler ({psecs:.3f} s): "
+          f"{copied} bytes from the card (bound {CDENSE_XEB_BYTES}; "
+          f"|psi|^2 is {2**CDENSE_N * 8} bytes); "
+          f"simulate_counts({CDENSE_SAMPLES}, "
+          f"seed={SEED}) {counts} in {csecs:.3f} s, sample's strings "
+          f"{'counted alike' if counts == Counter(samples) else 'differ'}",
+          flush=True)
+    if not (math.isfinite(xeb) and xeb_p == xeb
+            and copied <= CDENSE_XEB_BYTES and counts == Counter(samples)):
+        raise AssertionError("CircuitDense's xeb or simulate_counts")
     if sum(ck.LAUNCHES.values()):
         raise AssertionError("CircuitDense launched a sandwich kernel")
     del dense, lazy
@@ -4708,6 +4773,8 @@ SHARD_EXPM_NCV = 32
 SHARD_EXACT_RESTARTS = 30
 SHARD_SLQ_R, SHARD_SLQ_K = 32, 40
 SHARD_SLQ_TOL = 1e-10
+# 30(g): DMRGX on the CPU tests' chain; SpinHam1D's dense form at 12 sites
+DMRGX_L, DMRGX_CHI, SPIN_HAM_L = 12, 8, 12
 
 
 def _power():
@@ -4916,7 +4983,7 @@ def _sharded_tebd(mesh):
     for shard in (True, False):
         tebd = quimb_torch.TEBD(quimb_torch.MPS_neel_state(
             TEBD_L, dtype=torch.float64), quimb_torch.ham_1d_heis(TEBD_L),
-            split_opts=opts)
+            split_opts=opts, progbar=False)
         if shard:
             tebd.shard_onto(mesh)
         ents[shard] = []
@@ -4969,8 +5036,51 @@ def _sharded_slq(mesh, H, ell):
         raise AssertionError("the sharded SLQ misses the unsharded one")
 
 
+def _sharded_dmrgx_and_spin_ham():
+    """Phase 30(g): DMRGX at L=12 under shard_onto(get_mesh_2d()) against
+    the unsharded sweeps, bit for bit; SpinHam1D's dense Hamiltonian on
+    the card against its host CSR matrix."""
+    from quimb_torch.parallel import get_mesh_2d
+
+    mesh = get_mesh_2d()
+    H = quimb_torch.MPO_ham_heis(DMRGX_L, j=(1.0, 1.0, 1.3), device="cuda")
+    ens = {}
+    before = dict(ck.LAUNCHES)
+    for shard in (True, False):
+        engine = quimb_torch.DMRGX(
+            H, quimb_torch.MPS_neel_state(DMRGX_L, dtype=torch.float64),
+            bond_dims=DMRGX_CHI, cutoffs=0.0)
+        if shard:
+            engine.shard_onto(mesh)
+        ens[shard], secs = _timed(lambda: [
+            engine.sweep(d, max_bond=DMRGX_CHI, cutoff=0.0, canonize=c)
+            for d, c in (("R", True), ("L", False))])
+        print(f"DMRGX L={DMRGX_L}, chi={DMRGX_CHI}, "
+              f"{'sharded' if shard else 'unsharded'}: energies "
+              f"{ens[shard]!r} in {secs:.3f} s", flush=True)
+    ham = quimb_torch.SpinHam1D(S=1 / 2)
+    ham += 1.0, "X", "X"
+    ham += 1.0, "Y", "Y"
+    ham += 1.0, "Z", "Z"
+    ham += 0.3, "Z"
+    dense, dsecs = _timed(lambda: ham.build_dense(SPIN_HAM_L))
+    sparse, ssecs = _timed(lambda: ham.build_sparse(SPIN_HAM_L))
+    _on_card("SpinHam1D.build_dense", dense, torch.complex128)
+    dist = float(np.abs(to_host(dense) - sparse.toarray()).max())
+    print(f"SpinHam1D(S=1/2).build_dense({SPIN_HAM_L}) {tuple(dense.shape)} "
+          f"on {dense.device} in {dsecs:.3f} s; against build_sparse "
+          f"({ssecs:.3f} s, {sparse.nnz} nonzeros): {dist:.3e} (bound "
+          f"{SHARD_TOL:.0e})", flush=True)
+    if ens[True] != ens[False]:
+        raise AssertionError("the sharded DMRGX differs from the unsharded")
+    if not dist <= SHARD_TOL:
+        raise AssertionError("SpinHam1D.build_dense misses build_sparse")
+    if dict(ck.LAUNCHES) != before:
+        raise AssertionError("phase 30(g) launched a sandwich kernel")
+
+
 def run_multidevice(expm_z0):
-    """Phase 30(b)-(f) in a one-rank NCCL world on the card; no sandwich
+    """Phase 30(b)-(g) in a one-rank NCCL world on the card; no sandwich
     kernel but (f)'s DMRG sweep."""
     import torch.distributed as dist
 
@@ -4986,14 +5096,15 @@ def run_multidevice(expm_z0):
     for part, fn in (("c", lambda: _sharded_circuit(mesh)),
                      ("d", lambda: _sharded_tebd(mesh)),
                      ("e", lambda: _sharded_slq(mesh, H, ell)),
-                     ("f", lambda: par.dryrun_multichip(1))):
+                     ("f", lambda: par.dryrun_multichip(1)),
+                     ("g", _sharded_dmrgx_and_spin_ham)):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         secs[part] = time.perf_counter() - t0
         torch.cuda.empty_cache()
     dist.destroy_process_group()
-    print(f"phase 30(b)-(f): {time.perf_counter() - t_phase:.1f} s ("
+    print(f"phase 30(b)-(g): {time.perf_counter() - t_phase:.1f} s ("
           + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items())
           + f"); {_power()}", flush=True)
 

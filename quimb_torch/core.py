@@ -115,14 +115,15 @@ def _apply_dtype(op_dtype, x_dtype):
 
 
 def quimbify(data, qtype=None, normalized=False, chopped=False,
-             sparse=None, dtype=None, device=None):
+             sparse=None, stype=None, dtype=None, device=None):
     """``data`` as a quantum object in ``dtype`` (complex128 by default):
     a ket (d, 1) for ``qtype="ket"`` or a 1-d input, a bra (1, d),
     conjugated, for ``"bra"``, a density operator for ``"dop"``. A tensor
     stays on its device unless ``device`` is given; host data goes to
     ``device``, the GPU by default. With ``sparse`` the result is a host
     scipy CSR matrix (quimb_tpu's is a JAX BCOO), which
-    :func:`device_operator` takes to the device."""
+    :func:`device_operator` takes to the device. ``stype`` (the sparse
+    format) is accepted and ignored, as quimb_tpu ignores it."""
     dtype = dtype or get_default_dtype()
     if sp.issparse(data):
         data = data.toarray()
@@ -309,10 +310,13 @@ def dim_compress(dims, inds):
     return tuple(new_dims), tuple(new_inds)
 
 
-def kron(*ops, device=None):
+def kron(*ops, stype=None, coo_build=False, parallel=False, ownership=None,
+         device=None):
     """Kronecker product of operators: a host scipy CSR matrix when any of
     them is sparse; else a tensor in their promoted dtype, on ``device``,
-    or the first tensor's device, or the GPU."""
+    or the first tensor's device, or the GPU. ``stype``, ``coo_build``,
+    ``parallel`` and ``ownership`` (the sparse format, its assembly and a
+    slice of rows) are accepted and ignored, as quimb_tpu ignores them."""
     if any(sp.issparse(op) for op in ops):
         return functools.reduce(
             lambda a, b: sp.kron(a, b, format="csr"),
@@ -353,12 +357,14 @@ def _find_dims_inds(dims, inds):
     return tuple(dims), tuple(int(i) for i in inds)
 
 
-def ikron(ops, dims, inds, sparse=None, device=None):
+def ikron(ops, dims, inds, sparse=None, stype=None, coo_build=False,
+          parallel=False, ownership=None, device=None):
     """The operator(s) ``ops`` placed at the subsystems ``inds`` of a
     system of dimensions ``dims``, the identity elsewhere; an operator may
     span several neighbouring subsystems. A host scipy CSR matrix when
     any factor is sparse (or ``sparse``), else a tensor on ``device``, or
-    the first tensor's device, or the GPU."""
+    the first tensor's device, or the GPU. ``stype``, ``coo_build``,
+    ``parallel`` and ``ownership`` are ignored, as in :func:`kron`."""
     dims, inds = _find_dims_inds(dims, inds)
     if not isinstance(ops, (list, tuple)):
         ops = (ops,) * len(inds)

@@ -16,8 +16,11 @@ from ..core import ikron, kron, pkron, quimbify
 from ..ops.backend import resolve_device
 
 
-def basis_vec(i, dim, dtype=None, qtype="ket", device=None):
-    """The ``i``-th computational basis ket of dimension ``dim``."""
+def basis_vec(i, dim, ownership=None, dtype=None, qtype="ket", sparse=False,
+              device=None):
+    """The ``i``-th computational basis ket of dimension ``dim``, dense on
+    ``device``. ``ownership`` and ``sparse`` are accepted and ignored, as
+    quimb_tpu ignores them (its ket is always dense)."""
     x = torch.zeros(dim, dtype=dtype or get_default_dtype(),
                     device=resolve_device(device))
     x[i] = 1.0
@@ -69,8 +72,10 @@ def yminus(qtype="ket", dtype=None, device=None):
     return _qu([s, -1j * s], qtype, dtype, device)
 
 
-def bloch_state(ax, ay, az, purified=False, dtype=None, device=None):
-    """The density operator at Bloch coordinates (ax, ay, az)."""
+def bloch_state(ax, ay, az, purified=False, dtype=None, sparse=False,
+                device=None):
+    """The density operator at Bloch coordinates (ax, ay, az); dense
+    whatever ``sparse`` says, as quimb_tpu's."""
     if purified:
         norm = math.sqrt(ax**2 + ay**2 + az**2)
         ax, ay, az = ax / norm, ay / norm, az / norm
@@ -106,9 +111,10 @@ def thermal_state(ham, beta, precomp_func=False):
     return gen if precomp_func else gen(beta)
 
 
-def computational_state(binary, qtype="ket", dtype=None, device=None):
+def computational_state(binary, qtype="ket", dtype=None, sparse=False,
+                        device=None):
     """The ket of a binary string such as '0101' (or a sequence of 0s and
-    1s), site 0 first."""
+    1s), site 0 first; dense whatever ``sparse`` says, as quimb_tpu's."""
     if isinstance(binary, (tuple, list)):
         binary = "".join(map(str, binary))
     return basis_vec(int(binary, 2), 2 ** len(binary), dtype=dtype,
@@ -174,8 +180,9 @@ def perm_state(ps):
     return out / torch.linalg.norm(out)
 
 
-def graph_state_1d(n, cyclic=True, dtype=None, device=None):
-    """The 1D graph state: plus states entangled by CZ gates."""
+def graph_state_1d(n, cyclic=True, sparse=False, dtype=None, device=None):
+    """The 1D graph state: plus states entangled by CZ gates; dense
+    whatever ``sparse`` says, as quimb_tpu's."""
     from .operators import cZ
 
     psi = kron(*(plus(dtype=dtype, device=device) for _ in range(n)))

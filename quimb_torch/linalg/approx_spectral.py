@@ -93,13 +93,21 @@ class LazyPtrPptOperator:
 # -- batched Lanczos tridiagonalization -----------------------------------------
 
 
-def construct_lanczos_tridiag(matmat, n, K, V0, dtype=None):
+def construct_lanczos_tridiag(matmat=None, n=None, K=None, V0=None,
+                              dtype=None, matvec=None):
     """Lanczos on a wave of probes at once: ``V0`` (R, n) -> ``(alpha,
-    beta)``, each (R, K). ``matmat`` maps an (n, R) block to (n, R).
+    beta)``, each (R, K). ``matmat`` maps an (n, R) block to (n, R); or
+    ``matvec``, quimb_tpu's keyword, maps one (n,) vector and is applied
+    to every probe by ``torch.func.vmap``, as quimb_tpu applies it by
+    ``jax.vmap``.
 
     No reorthogonalization (quadrature tolerates the ghost eigenvalues, as
     the reference's loop does, approx_spectral.py:307-339); the ``K``
     steps run on the device with no read of it."""
+    if (matmat is None) == (matvec is None):
+        raise ValueError("give one of matmat and matvec")
+    if matvec is not None:
+        matmat = torch.func.vmap(matvec, in_dims=1, out_dims=1)
     v = V0 / torch.linalg.vector_norm(V0, dim=1, keepdim=True)
     vm = torch.zeros_like(v)
     b = torch.zeros(v.shape[0], dtype=v.real.dtype, device=v.device)

@@ -95,10 +95,11 @@ def _as_operator(A, device=None):
         torch.device(own) if own is not None else resolve_device(device)
 
 
-def choose_backend(A, k, int_eps=False):
+def choose_backend(A, k, int_eps=False, B=None):
     """The backend for ``k`` eigenpairs of ``A``: dense for a dense
     operator of fewer than :data:`AUTO_DENSE_CUTOFF` entries or an
-    interior window, Lanczos otherwise."""
+    interior window, Lanczos otherwise. ``B`` (a generalised problem's
+    metric) is ignored, as quimb_tpu ignores it."""
     if _isdense(A) and prod(np.shape(A)) < AUTO_DENSE_CUTOFF:
         return "numpy"
     if int_eps:
@@ -113,13 +114,16 @@ def _start_vector(n, dtype, device, seed=42):
                            dtype=dtype, device=device)
 
 
-def eigensystem_partial(A, k, isherm=True, which=None, return_vecs=True,
-                        sigma=None, ncv=None, tol=1e-10, v0=None,
-                        backend=None, device=None, **backend_opts):
+def eigensystem_partial(A, k, isherm=True, B=None, which=None,
+                        return_vecs=True, sigma=None, ncv=None, tol=1e-10,
+                        v0=None, sort=True, backend=None,
+                        fallback_to_scipy=True, device=None, **backend_opts):
     """``k`` extremal eigenpairs of the hermitian operator ``A``
     (``which="SA"`` smallest, ``"LA"`` largest), or the ``k`` nearest
     ``sigma``. Returns the eigenvalues (k,) and, with ``return_vecs``, the
-    vectors as columns (n, k), on the operator's device."""
+    vectors as columns (n, k), on the operator's device, sorted. ``B``,
+    ``sort`` and ``fallback_to_scipy`` are accepted and ignored, as
+    quimb_tpu ignores them."""
     if not isherm:
         raise NotImplementedError(
             "partial non-hermitian eigensolve: use a dense eig")
@@ -190,13 +194,15 @@ def eigensystem_partial(A, k, isherm=True, which=None, return_vecs=True,
 
 
 def eigsh_device(mv, v0, k=1, which="SA", ncv=None, tol=1e-10,
-                 restarts=None):
+                 restarts=None, A=None):
     """Restarted Lanczos for ``k`` extremal eigenpairs, with deflation:
     the j-th solve shifts the pairs found so far out of the way and starts
     from standard normal draws of a CPU ``torch.Generator`` seeded ``j -
     1``, moved to the device (quimb_tpu draws them from
     ``jax.random.PRNGKey(j - 1)``, which torch cannot reproduce). Returns
-    (lams (k,), vecs (k, n)) sorted."""
+    (lams (k,), vecs (k, n)) sorted. ``A``, the operator behind ``mv``,
+    is ignored: quimb_tpu passes it to its compiled solve as an operand,
+    and the port compiles nothing."""
     if ncv is None:
         ncv = max(20, 2 * k + 10)
     if restarts is None:
@@ -258,12 +264,13 @@ def groundenergy(ham, **kwargs):
     return lam
 
 
-def expm_multiply(mat, vec, ncv=None, device=None):
+def expm_multiply(mat, vec, backend="AUTO", ncv=None, device=None):
     """``expm(mat) @ vec`` without forming ``expm(mat)``, by Krylov
     projection: Arnoldi when the operator or the vector is complex (so
     ``-1j * H`` is exact), Lanczos otherwise. A complex vector is taken to
     complex128, or complex64 when it was float32 or complex64 (quimb_tpu
-    keys this on its x64 flag instead)."""
+    keys this on its x64 flag instead). ``backend`` is ignored, as
+    quimb_tpu ignores it: both always project on a Krylov space."""
     mv, n, dtype, _, dev = _as_operator(mat, device)
     v = torch.reshape(to_device(vec, device=dev), (-1,))
     if ncv is None:

@@ -205,12 +205,13 @@ def expm_multiply_krylov(A, v, t=1.0, ncv=30, hermitian=True):
     return torch.reshape((eH[:, 0] * nrm) @ V, shape)
 
 
-def lobpcg_block(A, X0, maxiter=50, largest=False):
+def lobpcg_block(A, X0, maxiter=50, tol=1e-8, largest=False):
     """LOBPCG for the k smallest (or largest) eigenpairs of a hermitian
     operator, from the block ``X0`` (n, k): a fixed count of iterations,
     each a Rayleigh-Ritz step in the orthonormalised span of the block,
     its residuals and its last update. Returns (eigenvalues (k,),
-    vectors (n, k))."""
+    vectors (n, k)). ``tol`` is accepted and ignored, as quimb_tpu's fixed
+    count of iterations ignores it."""
     matvec = _identity_like_matvec(A)
     n, k = X0.shape
 

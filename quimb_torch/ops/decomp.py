@@ -876,10 +876,16 @@ def isometrize_householder(X):
     return torch.linalg.householder_product(X, tau.to(X.dtype))
 
 
+def isometrize_mgs(A):
+    """Modified Gram-Schmidt, as quimb_tpu computes it: its stabilised QR
+    (the same projector)."""
+    return isometrize_qr(A)
+
+
 _ISOMETRIZE_METHODS = {
     "qr": isometrize_qr,
     "svd": isometrize_svd,
-    "mgs": isometrize_qr,
+    "mgs": isometrize_mgs,
     "exp": isometrize_exp,
     "cayley": isometrize_cayley,
     "householder": isometrize_householder,

@@ -84,13 +84,24 @@ def _world(device):
     return device
 
 
-def _init_mesh(shape, names, device):
+def _init_mesh(shape, names, device, devices=None):
     """A DeviceMesh of ``shape`` (the world's size by default) over the
-    world, on ``device``'s type."""
+    world, on ``device``'s type; or over ``devices``, one device a rank in
+    rank order, a list as long as the world."""
     from torch.distributed.device_mesh import init_device_mesh
 
+    if devices is not None:
+        devices = [torch.device(d) for d in devices]
+        if len({d.type for d in devices}) != 1:
+            raise ValueError("a mesh's devices must be of one type")
+        device = devices[0]
     device = _world(device)
     world = dist.get_world_size()
+    if devices is not None:
+        if len(devices) != world:
+            raise ValueError(f"{len(devices)} devices given for a world of "
+                             f"{world} ranks: one device a rank")
+        device = devices[dist.get_rank()]
     if shape is None:
         shape = (world,)
     if math.prod(shape) != world:
@@ -98,32 +109,42 @@ def _init_mesh(shape, names, device):
                          f"world of {world} ranks: start as many ranks as "
                          f"the mesh has (torchrun --nproc-per-node=N)")
     if device.type == "cuda":
-        torch.cuda.set_device(_local_rank())
+        torch.cuda.set_device(_local_rank() if devices is None
+                              else device)
     return init_device_mesh(device.type, tuple(shape),
                             mesh_dim_names=tuple(names))
 
 
-def get_mesh(n=None, axis_name="d", device=None):
+def get_mesh(n=None, axis_name="d", devices=None, device=None):
     """A 1D mesh over every rank of the world, one device per rank: the
     card of the rank's local rank, or the CPU with ``device="cpu"``. With
     no world yet it starts a one-rank world. ``n``, if given, must be the
+    world's size. ``devices``, quimb_tpu's keyword, lists the device of
+    each rank (its first ``n`` with ``n``); its length must be the
     world's size."""
+    if devices is not None and n is not None:
+        devices = list(devices)[:n]
     world = None if n is None else (n,)
-    return _init_mesh(world, (axis_name,), device)
+    return _init_mesh(world, (axis_name,), device, devices)
 
 
-def get_mesh_2d(shape=None, axis_names=("dl", "dr"), device=None):
+def get_mesh_2d(shape=None, axis_names=("dl", "dr"), devices=None,
+                device=None):
     """A 2D mesh over the world for operator-style shardings (the two
     virtual axes of DMRG environments); by default the most square
-    factorization of the world's size."""
+    factorization of the world's size. ``devices`` lists the device of
+    each rank, as in :func:`get_mesh`."""
     if shape is None:
-        _world(device)
-        n = dist.get_world_size()
+        if devices is None:
+            _world(device)
+            n = dist.get_world_size()
+        else:
+            n = len(devices)
         p = int(math.sqrt(n))
         while n % p:
             p -= 1
         shape = (n // p, p)
-    return _init_mesh(tuple(shape), axis_names, device)
+    return _init_mesh(tuple(shape), axis_names, device, devices)
 
 
 def mesh_device(mesh):

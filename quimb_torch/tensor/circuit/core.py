@@ -308,6 +308,26 @@ class CircuitBase:
         if self._sample_n_gates != self.num_gates:
             self.clear_storage()
 
+    def simulate_counts(self, C, seed=None, **to_dense_opts):
+        """``C`` measurements of every qubit, as a dict of counts, drawn
+        from the whole state (reference ``CircuitBase.simulate_counts``):
+        :func:`quimb_torch.calc.simulate_counts` of ``to_dense()``, whose
+        draw is quimb_tpu's numpy one over a host copy of |psi|^2."""
+        from ...calc import simulate_counts
+
+        return simulate_counts(self.to_dense(**to_dense_opts), C, seed=seed)
+
+    def xeb(self, samples, **kwargs):
+        """The linear cross-entropy benchmark fidelity ``D <p(s)> - 1`` of
+        the bitstrings (or integers) ``samples`` under the normalised
+        |psi|^2 of ``to_dense()`` (reference ``CircuitBase.xeb``). The
+        probabilities stay on the state's device; only the sampled ones
+        are gathered, and one number is read."""
+        p = torch.abs(self.to_dense().reshape(-1)) ** 2
+        idx = torch.as_tensor([int(s, 2) if isinstance(s, str) else int(s)
+                               for s in samples], device=p.device)
+        return p.numel() * float(p[idx].mean() / p.sum()) - 1
+
     def draw(self, **kwargs):
         """Print a text diagram of the circuit gates (the reference
         draws with matplotlib)."""

@@ -467,6 +467,36 @@ class SpinHam1D:
             total = total.add_MPO(term)
         return total
 
+    def build_sparse(self, L, **ikron_opts):
+        """The Hamiltonian of ``L`` sites as a host scipy CSR matrix in
+        ``config.default_dtype`` (reference ``SpinHam1D.build_sparse``),
+        with its local terms recorded for :func:`~quimb_torch.core.
+        device_operator`. ``ikron_opts`` are ignored, as quimb_tpu ignores
+        them."""
+        from ...core import ham_from_terms
+
+        terms = []
+        for i in range(L):
+            for factor, s in self.var_one_site_terms.get(
+                    i, self.one_site_terms):
+                terms.append((factor, (self._op(s),), (i,)))
+            if i + 1 == L and not self.cyclic:
+                break
+            for factor, s1, s2 in self.var_two_site_terms.get(
+                    (i, i + 1), self.two_site_terms):
+                terms.append((factor, (self._op(s1), self._op(s2)),
+                              (i, (i + 1) % L)))
+        return ham_from_terms(terms, (int(2 * self.S + 1),) * L,
+                              sparse=True)
+
+    def build_dense(self, L, device=None):
+        """The Hamiltonian of ``L`` sites as a dense tensor in
+        ``config.default_dtype`` on ``device``, the GPU by default
+        (reference ``SpinHam1D.build_dense``)."""
+        return to_device(self.build_sparse(L).toarray(),
+                         device=resolve_device(device),
+                         dtype=get_default_dtype())
+
     def build_local_ham(self, L=None, **local_ham_1d_opts):
         """The :class:`~.tebd.LocalHam1D` (TEBD) form on ``L`` sites."""
         from .tebd import LocalHam1D

@@ -46,11 +46,12 @@ from .core import (
 )
 
 
-def get_default_opts(device=torch.device("cpu")):
+def get_default_opts(cyclic=False, device=torch.device("cpu")):
     """The options the engine reads for tensors on ``device``, with
     quimb_tpu's defaults: its accelerator's split on a GPU, its CPU split
     on the CPU. On an H100 the subspace split takes 2.1-2.3 ms at a
-    chi=256 bulk bond, against 54-56 ms for ``gesvd``."""
+    chi=256 bulk bond, against 54-56 ms for ``gesvd``. ``cyclic`` is
+    ignored, as quimb_tpu ignores it: a ring reads the same options."""
     return {
         "default_sweep_sequence": "R",
         # "svd", "svd:eig", "svd:sub" or "svd:sub0" (_split_2site); a
@@ -77,6 +78,10 @@ def get_default_opts(device=torch.device("cpu")):
         "periodic_canonize_inv_tol": 1e-10,
         "periodic_orthog_tol": 1e-6,
     }
+
+
+class DMRGError(Exception):
+    pass
 
 
 class _EndlessSeq:
@@ -454,7 +459,7 @@ class DMRG:
         self.ham = ham
         self._W = _mpo_uniform_arrays(ham)
         device = self._W[0].device
-        self.opts = get_default_opts(device)
+        self.opts = get_default_opts(device=device)
         if p0 is None:
             p0 = MPS_rand_state(self.L, self._bond_dim0, self.phys_dim,
                                 dtype=ham.dtype, device=device,
@@ -487,7 +492,7 @@ class DMRG:
         self.ham = ham
         Ws = cyclic_mpo_arrays(ham)
         device = Ws[0].device
-        self.opts = get_default_opts(device)
+        self.opts = get_default_opts(device=device)
         if p0 is None:
             p0 = MPS_rand_state(self.L, self._bond_dim0, self.phys_dim,
                                 cyclic=True, dtype=ham.dtype, device=device,
@@ -690,11 +695,13 @@ class DMRG:
         self.local_energies.append(energies)
         return float(energies[-1].real)
 
-    def sweep(self, direction, max_bond=None, cutoff=1e-9, canonize=True):
+    def sweep(self, direction, max_bond=None, cutoff=1e-9, canonize=True,
+              verbosity=0):
         """One full sweep, ``"R"`` or ``"L"``; returns its last energy.
         A right sweep with ``canonize`` first right-canonizes the
         chain. On a ring the engine sweeps its segments, with at least two
-        Lanczos restarts, and gauges each one itself."""
+        Lanczos restarts, and gauges each one itself. ``verbosity`` is
+        ignored, as quimb_tpu's sweeps ignore it."""
         if self._cyc is not None:
             ncv = max(2 * self.opts["local_eig_ncv"],
                       self.opts["local_eig_ncv_floor"])
@@ -711,9 +718,12 @@ class DMRG:
         raise ValueError(f"bad direction {direction}")
 
     def solve(self, tol=1e-4, bond_dims=None, cutoffs=None,
-              sweep_sequence=None, max_sweeps=10, verbosity=0):
+              sweep_sequence=None, max_sweeps=10, verbosity=0,
+              suppress_warnings=True):
         """Sweep until two successive sweep energies differ by less than
-        ``tol``. Returns whether that happened within ``max_sweeps``."""
+        ``tol``. Returns whether that happened within ``max_sweeps``. With
+        ``verbosity`` each sweep's energy is printed; ``suppress_warnings``
+        is ignored, as quimb_tpu ignores it."""
         if bond_dims is not None:
             self._set_bond_dim_seq(bond_dims)
         if cutoffs is not None:
@@ -730,7 +740,7 @@ class DMRG:
             # no re-canonization where the sweep direction alternates
             canonize = LR + previous_LR not in {"RL", "LR"}
             en = self.sweep(LR, max_bond=max_bond, cutoff=cutoff,
-                            canonize=canonize)
+                            canonize=canonize, verbosity=verbosity)
             self.energies.append(en)
             if verbosity:
                 print(f"sweep {s + 1} ({LR}): max_bond={max_bond}, "
@@ -776,10 +786,13 @@ class DMRGX(DMRG):
                          p0=p0)
 
     def shard_onto(self, mesh, axes=None):
-        """Not for DMRGX: its dense local solves build the whole effective
-        Hamiltonian on one device."""
-        raise NotImplementedError("DMRGX's dense local solves are not "
-                                  "sharded")
+        """Run on every rank of ``mesh`` replicated: DMRGX's dense local
+        solves build the whole effective Hamiltonian, so each rank sweeps
+        the whole chain with its site tensors whole, and every rank's
+        energies are the unsharded ones (as quimb_tpu's sharded DMRGX
+        returns its unsharded energies). Every rank calls each method
+        with the same arguments."""
+        return self
 
     def _local_solve_dense_overlap(self, lenv, Ws, renv, theta0):
         shape = theta0.shape

@@ -38,6 +38,7 @@ import torch
 from ...ops import decomp
 from ...ops.backend import complex_dtype, resolve_device, to_device, to_host
 from ...parallel.mesh import _all_gather, _all_reduce, _broadcast
+from ...utils import continuous_progbar
 from .core import _arrays_to_mps, _mps_uniform_arrays, expec_TN_1D
 from .dmrg import _right_canonize_step
 
@@ -409,7 +410,7 @@ class TEBD:
     TARGET_TOL = 1e-13
 
     def __init__(self, p0, H, dt=None, tol=None, t0=0.0, imag=False,
-                 split_opts=None, fused=True):
+                 split_opts=None, progbar=True, fused=True):
         self.L = p0.L
         self.imag = imag
         self._like = p0
@@ -437,6 +438,7 @@ class TEBD:
         self.t = float(t0)
         self.split_opts = dict(split_opts or {})
         self.split_opts.setdefault("cutoff", 1e-10)
+        self.progbar = progbar
         self._err = 0.0
         self._trunc_err = 0.0
         self._ham_norm = self.H.mean_norm()
@@ -714,10 +716,14 @@ class TEBD:
         Us = self._U_cache[key] = _expm_herm(Hs, factor).to(self._dtype)
         return Us
 
-    def sweep(self, direction, dt_frac):
+    def sweep(self, direction, dt_frac, dt=None, queue=False):
         """Apply the gates of every even (``"right"``) or odd (``"left"``)
-        bond for a time ``dt_frac * dt``; on a ring the odd sweep also
-        gates the wrap bond ``(L - 1, 0)``."""
+        bond for a time ``dt_frac * dt``, with ``dt`` the engine's unless
+        given; on a ring the odd sweep also gates the wrap bond ``(L - 1,
+        0)``. ``queue`` is accepted and ignored, as quimb_tpu ignores
+        it."""
+        if dt is not None:
+            dt_frac *= dt / self._dt
         parity = {"right": 0, "left": 1}.get(direction)
         if parity is None:
             raise ValueError(f"bad direction {direction}")
@@ -750,29 +756,37 @@ class TEBD:
         if self.imag:
             self._pt.normalize()
 
-    def _step_order2(self, tau=1.0):
+    def _step_order2(self, tau=1.0, **sweep_opts):
         """Second-order Suzuki-Trotter step."""
-        self.sweep("right", tau / 2)
-        self.sweep("left", tau)
-        self.sweep("right", tau / 2)
+        self.sweep("right", tau / 2, **sweep_opts)
+        self.sweep("left", tau, **sweep_opts)
+        self.sweep("right", tau / 2, **sweep_opts)
 
-    def _step_order4(self):
+    def _step_order4(self, **sweep_opts):
         """Fourth-order Suzuki-Trotter step."""
         tau1 = tau2 = 1 / (4 - 4 ** (1 / 3))
         tau3 = 1 - 2 * tau1 - 2 * tau2
         for tau in (tau1, tau2, tau3, tau2, tau1):
-            self._step_order2(tau)
+            self._step_order2(tau, **sweep_opts)
 
-    def step(self, order=2):
-        """Advance one time step of ``dt``."""
-        {2: self._step_order2, 4: self._step_order4}[order]()
-        self.t += self._dt
-        self._err += self._ham_norm * abs(self._dt) ** (order + 1)
-        self.taus.append(self._dt)
+    def step(self, order=2, dt=None, progbar=None, **sweep_opts):
+        """Advance one time step: the gates of the engine's ``dt``
+        (``sweep_opts`` go to :meth:`sweep`), while the clock, the Trotter
+        error estimate and :attr:`taus` advance by ``dt``, the engine's
+        unless given, as quimb_tpu's bookkeeping does. A ``progbar`` (a
+        ``continuous_progbar``) is moved to the new time."""
+        {2: self._step_order2, 4: self._step_order4}[order](**sweep_opts)
+        dt = self._dt if dt is None else dt
+        self.t += dt
+        self._err += self._ham_norm * abs(dt) ** (order + 1)
+        self.taus.append(dt)
+        if progbar is not None:
+            progbar.cupdate(self.t)
 
-    def update_to(self, T, dt=None, tol=None, order=4):
+    def update_to(self, T, dt=None, tol=None, order=4, progbar=None):
         """Evolve to time ``T``; a last step that would overshoot is
-        scaled down to end on ``T``."""
+        scaled down to end on ``T``. With ``progbar`` (the engine's
+        ``progbar`` unless given) a progress bar follows the time."""
         if dt is None:
             if tol is None:
                 tol = self.tol
@@ -782,21 +796,27 @@ class TEBD:
                 dt = self._dt
         self._dt = dt
 
+        if progbar is None:
+            progbar = self.progbar
+        pbar = continuous_progbar(self.t, T) if progbar else None
         while self.t < T - self.TARGET_TOL:
             if self.t + self._dt > T:
                 old_dt = self._dt
                 self._dt = T - self.t
                 self._U_cache = {}
-                self.step(order=order)
+                self.step(order=order, progbar=pbar)
                 self._dt = old_dt
                 self._U_cache = {}
             else:
-                self.step(order=order)
+                self.step(order=order, progbar=pbar)
+        if pbar is not None:
+            pbar.close()
 
-    def at_times(self, ts, dt=None, tol=None, order=4):
-        """Generator of the state at each time in ``ts``."""
+    def at_times(self, ts, dt=None, tol=None, order=4, progbar=None):
+        """Generator of the state at each time in ``ts``; no progress bar
+        (``progbar`` is ignored, as quimb_tpu ignores it)."""
         for T in ts:
-            self.update_to(T, dt=dt, tol=tol, order=order)
+            self.update_to(T, dt=dt, tol=tol, order=order, progbar=False)
             yield self.pt
 
 
@@ -809,7 +829,7 @@ def OTOC_local(psi0, H, H_back, ts, i, A, j=None, B=None,
     j = i if j is None else j
 
     def evolve(psi, ham, t):
-        tebd = TEBD(psi, ham, **tebd_opts)
+        tebd = TEBD(psi, ham, progbar=False, **tebd_opts)
         tebd.update_to(t)
         return tebd.pt
 

@@ -174,13 +174,31 @@ def dryrun(inp):
     return out
 
 
+def get_mesh_from_devices(inp):
+    """quimb_tpu's ``devices=``: one device a rank (the first ``n`` with
+    ``n``); a list of another length raises."""
+    n = torch.distributed.get_world_size()
+
+    def shape(m):
+        return tuple(m.shape), tuple(m.mesh_dim_names)
+
+    out = {"1d": shape(get_mesh(devices=[CPU] * n)),
+           "2d": shape(get_mesh_2d(devices=[torch.device(CPU)] * n)),
+           "first_n": shape(get_mesh(n, devices=[CPU] * (n + 2)))}
+    try:
+        get_mesh(devices=[CPU] * (n - 1))
+    except ValueError as e:
+        out["short"] = str(e)
+    return out
+
+
 PARALLEL_CASES = [(f.__name__, f) for f in (
     matvec_exact, row_slabs_match_mesh, non_power_of_two_dim, chunked_ell,
     groundstate, expm, slq, contract_sliced_matches_direct,
     contract_sliced_two_inds, marginal_matches_single_device,
     conditional_marginal_matches, sample_statistics_match,
     contract_tn_mesh_exactness, amplitude_mesh, get_mesh_other_size_raises,
-    distributed_init_joins_existing_world, dryrun)]
+    distributed_init_joins_existing_world, dryrun, get_mesh_from_devices)]
 
 
 # -- quimb_tpu's tests/test_parallel/test_mesh_dmrg.py ---------------------------
@@ -246,6 +264,35 @@ def bulk_arrays_really_sharded(inp):
             "lenv": [where(lenv[j]) for j in (0, 12, 21)]}
 
 
+def dmrgx_sharded_sweeps_match(inp):
+    """DMRGX (L=12) unsharded and under ``shard_onto``: every rank runs
+    the whole sweep."""
+    H = qt.MPO_ham_heis(12, j=(1.0, 1.0, 1.3), device=CPU)
+    out = {}
+    for shard in ("", "sharded"):
+        dmrg = qt.DMRGX(H, convert.from_tpu_mps(inp["neel_12"], device=CPU),
+                        bond_dims=8, cutoffs=0.0)
+        if shard:
+            dmrg.shard_onto(mesh2())
+        out[shard] = [dmrg.sweep(d, max_bond=8, cutoff=0.0, canonize=c)
+                      for d, c in SWEEPS[:2]]
+    return out
+
+
+def ring_shard_onto_raises(inp):
+    """The ring engine (L=40, segmented) refuses ``shard_onto``."""
+    dmrg = qt.DMRG2(qt.MPO_ham_heis(40, cyclic=True, device=CPU),
+                    bond_dims=8, cutoffs=0.0,
+                    p0=qt.MPS_rand_state(40, 8, seed=3, cyclic=True,
+                                         device=CPU),
+                    cyclic_mode="segmented")
+    try:
+        dmrg.shard_onto(mesh2())
+    except NotImplementedError as e:
+        return {"ring": dmrg._cyc is not None, "error": str(e)}
+    return None
+
+
 def sharded_solve_converges_to_exact(inp):
     return _sweeps(qt.DMRG2, inp["p0_16_11"], 16, 32, True, 8)[0][-1]
 
@@ -292,4 +339,5 @@ MESH_DMRG_CASES = [(f.__name__, f) for f in (
     sharded_sweeps_match_single_device, bulk_arrays_really_sharded,
     sharded_solve_converges_to_exact,
     sharded_fused_tebd_matches_single_device, sharded_tebd_uneven_blocks,
-    dmrg1_sharded_sweeps_match)]
+    dmrg1_sharded_sweeps_match, dmrgx_sharded_sweeps_match,
+    ring_shard_onto_raises)]

@@ -1263,3 +1263,36 @@ def test_sharded_exact_core_on_card(nccl_world):
     y = par.expm_multiply_sharded(Hs, v, t=-0.4, ncv=40)
     np.testing.assert_allclose(y, sla.expm(-0.4 * dense) @ v, rtol=0,
                                atol=1e-10)
+
+
+def test_circuit_dense_xeb_and_counts_on_card_match_cpu(cuda):
+    """``CircuitBase.xeb`` and ``simulate_counts`` of a 12-qubit dense
+    circuit on the card give the CPU's: the same counts from the same
+    |psi|^2 and seed, the XEB at 1e-12."""
+    out = {}
+    for dev in ("cpu", cuda):
+        lazy = quimb_torch.circ_ansatz_1D_brickwork(12, 4, seed=3,
+                                                    device="cpu")
+        c = quimb_torch.CircuitDense(12, device=dev)
+        c.apply_gates(lazy.gates)
+        strings = list(c.sample(8, seed=6))
+        out[str(dev)] = (c.xeb(strings), c.simulate_counts(50, seed=7),
+                         strings)
+    assert out["cuda"][2] == out["cpu"][2]
+    assert out["cuda"][1] == out["cpu"][1]
+    assert sum(out["cuda"][1].values()) == 50
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], abs=1e-12)
+
+
+def test_spin_ham_build_dense_on_card_matches_cpu(cuda):
+    """``SpinHam1D.build_dense(10)`` on the card in the default dtype,
+    equal to the CPU's and to ``build_sparse``'s host matrix."""
+    H = quimb_torch.SpinHam1D(S=1 / 2)
+    H += 1.0, "X", "X"
+    H += 0.5, "Z", "Z"
+    H += 0.2, "Z"
+    got = H.build_dense(10)
+    assert got.is_cuda and got.dtype == torch.complex128
+    want = H.build_dense(10, device="cpu")
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    np.testing.assert_array_equal(want.numpy(), H.build_sparse(10).toarray())

@@ -275,11 +275,11 @@ def test_default_split_by_device():
     on the CPU (no tensor is made)."""
     from quimb_torch.tensor.tn1d.dmrg import get_default_opts
 
-    assert get_default_opts(torch.device("cuda"))["bond_compress_method"] \
-        == "svd:sub"
-    assert get_default_opts("cuda:0")["bond_compress_method"] == "svd:sub"
-    assert get_default_opts(torch.device("cpu"))["bond_compress_method"] \
-        == "svd"
+    for device, method in ((torch.device("cuda"), "svd:sub"),
+                           ("cuda:0", "svd:sub"),
+                           (torch.device("cpu"), "svd")):
+        assert get_default_opts(device=device)["bond_compress_method"] \
+            == method
     H = quimb_torch.MPO_ham_heis(6, device="cpu")
     for engine in (quimb_torch.DMRG2, quimb_torch.DMRG1):
         dmrg = engine(H, bond_dims=4)

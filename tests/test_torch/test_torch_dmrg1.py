@@ -146,6 +146,51 @@ def test_dmrg1_default_basis_stays_variational():
             E_EXACT_L10 - 1e-9
 
 
+def _mps_mpo_energy(psi, H):
+    """<psi|H|psi> / <psi|psi> by a plain numpy transfer from the left, on
+    the two objects' site arrays: independent of either package's sweep."""
+    env, nrm = np.ones((1, 1, 1)), np.ones((1, 1))
+    for A, W in zip(td._mps_uniform_arrays(psi), td._mpo_uniform_arrays(H)):
+        A, W = A.numpy(), W.numpy()
+        env = np.einsum("awk,apb,wxpq,kqc->bxc", env, A.conj(), W, A)
+        nrm = np.einsum("ak,apb,kpc->bc", nrm, A.conj(), A)
+    return float(np.real(env.ravel()[0] / nrm.ravel()[0]))
+
+
+def test_quimb_tpus_dmrg1_rises_on_a_stale_bulk_stack():
+    """ROADMAP's DMRG1 disagreement at L=24, chi=8: quimb_tpu's DMRG1
+    sweep energies rise and fall, the port's fall. The cause is
+    quimb_tpu's: its one-site sweeps write ``_A[i]`` without dropping the
+    cached stack of the uniform bulk (``_Abulk`` / ``_stack_key``, which
+    its two-site branch drops), and from ``b - a >= 10`` bulk sites
+    ``_build_left_envs`` / ``_build_right_envs`` contract the environments
+    from that stale stack. With the cache key cleared before each sweep
+    quimb_tpu's energies equal the port's to float64 round-off (1e-10).
+    The port's energies fall sweep by sweep, and its last equals the
+    energy of its state contracted afresh in numpy (1e-10; the DMRG2
+    fixed point at chi=8, -10.4529368, lies 1.8e-5 above DMRG1's)."""
+    L, chi = 24, 8
+    H, psi = _dmrg2_state(L, chi, seed=7, sweeps=1)
+    jdmrg, tdmrg = _dmrg1_pair(H, psi, chi)
+    fixed, _ = _dmrg1_pair(H, psi, chi)
+    kw = dict(max_bond=chi, cutoff=0.0, canonize=False)
+    j_en, f_en, t_en = [], [], []
+    for direction in "RLR":
+        j_en.append(jdmrg.sweep(direction, **kw))
+        fixed._stack_key = None
+        f_en.append(fixed.sweep(direction, **kw))
+        t_en.append(tdmrg.sweep(direction, **kw))
+    assert jdmrg._uniform_bulk_range() == (3, 21)
+    # quimb_tpu: a sweep that rises by more than 1e-2
+    assert max(np.diff(j_en)) > 1e-2
+    np.testing.assert_allclose(f_en, t_en, rtol=0, atol=1e-10)
+    for direction in "LRL":
+        t_en.append(tdmrg.sweep(direction, **kw))
+    assert all(b <= a + 1e-12 for a, b in zip(t_en, t_en[1:]))
+    assert abs(t_en[-1] - _mps_mpo_energy(
+        tdmrg.state, from_tpu_mpo(H, device="cpu"))) < 1e-10
+
+
 def test_dmrg1_solve():
     """``solve`` of DMRG1, from the L=10 state one sweep from random."""
     H, psi = _dmrg2_state(10, 16, seed=8, sweeps=1)

@@ -195,9 +195,10 @@ def test_marginals_match_brute_force_and_quimb_tpu():
                                                     normalized=normalized)
         for ix in inds:
             want = marg[ix] / Z if normalized else marg[ix]
-            np.testing.assert_allclose(ws[ix], want, rtol=1e-12)
-            np.testing.assert_allclose(wa[ix], want, rtol=1e-12)
-            np.testing.assert_allclose(wa[ix], ja[ix], rtol=1e-12)
+            tol = dict(rtol=1e-12, atol=1e-12 * np.abs(want).max())
+            np.testing.assert_allclose(ws[ix], want, **tol)
+            np.testing.assert_allclose(wa[ix], want, **tol)
+            np.testing.assert_allclose(wa[ix], ja[ix], **tol)
 
 
 def test_marginals_of_a_complex_network_keep_quimb_tpus_convention():
@@ -211,7 +212,8 @@ def test_marginals_of_a_complex_network_keep_quimb_tpus_convention():
     ja = jex.compute_all_marginals_via_autodiff(tj, ["a", "b"])
     ta = tex.compute_all_marginals_via_autodiff(tt, ["a", "b"])
     for ix in "ab":
-        np.testing.assert_allclose(ta[ix], ja[ix], rtol=1e-12)
+        np.testing.assert_allclose(ta[ix], ja[ix], rtol=1e-12,
+                                   atol=1e-12 * np.abs(ja[ix]).max())
 
 
 # -- the isometric network builder ----------------------------------------------

@@ -60,11 +60,22 @@ def _quimb_tpu_quench(L):
     return {"entropies": es, "trunc_err": float(tebd.trunc_err)}
 
 
+def _quimb_tpu_dmrgx():
+    """quimb_tpu's unsharded DMRGX (its sharded one returns the same
+    energies to 1e-10) on the world's case: L=12, anisotropic Heisenberg,
+    from the Neel state."""
+    dmrg = qtn.DMRGX(qtn.MPO_ham_heis(12, j=(1.0, 1.0, 1.3)),
+                     qtn.MPS_neel_state(12), bond_dims=8, cutoffs=0.0)
+    return [dmrg.sweep(d, max_bond=8, cutoff=0.0, canonize=c)
+            for d, c in cases.SWEEPS[:2]]
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     p0 = _p0(12, 6, 7)
     inputs = {"p0_12_7": _duck(p0), "p0_24_3": _duck(_p0(24, 8, 3)),
-              "p0_16_11": _duck(_p0(16, 32, 11))}
+              "p0_16_11": _duck(_p0(16, 32, 11)),
+              "neel_12": _duck(qtn.MPS_neel_state(12))}
     w = start(cases.MESH_DMRG_CASES, inputs, NPROCS,
               tmp_path_factory.mktemp("mesh_dmrg"))
     # quimb_tpu's quenches compile in a thread of their own meanwhile
@@ -85,6 +96,7 @@ def world(tmp_path_factory):
                                    cases.DMRG1_OPTS)[0],
         "exact16": spla.eigsh(qu.ham_heis(16, sparse=True), k=1,
                               which="SA")[0][0],
+        "dmrgx": _quimb_tpu_dmrgx(),
     }
     ref["tebd16"], ref["tebd18"] = quenches.result()
     pool.shutdown()
@@ -138,6 +150,34 @@ def test_dmrg1_sharded_sweeps_match(world):
     np.testing.assert_allclose(got["sharded"], got[""], rtol=0, atol=1e-12)
     np.testing.assert_allclose(got["sharded"], world[1]["dmrg1"], rtol=0,
                                atol=1e-9)
+
+
+def test_dmrgx_sharded_sweeps_match(world):
+    """``DMRGX.shard_onto`` runs the whole sweep on every rank: the
+    unsharded arithmetic, bit for bit; quimb_tpu's energies to 1e-10 (dense
+    float64 eighs of the same local operators)."""
+    got = _case(world, "dmrgx_sharded_sweeps_match")
+    assert got["sharded"] == got[""]
+    np.testing.assert_allclose(got["sharded"], world[1]["dmrgx"], rtol=0,
+                               atol=1e-10)
+
+
+def test_ring_shard_onto_raises_in_both(world):
+    """A ring (L=40, segmented) is not sharded in either package: the
+    port refuses it, and quimb_tpu's ``shard_onto`` reads the site list
+    ``_A``, which its ring engine never builds."""
+    from quimb_tpu.parallel.mesh import get_mesh_2d as jmesh_2d
+
+    got = _case(world, "ring_shard_onto_raises")
+    assert got["ring"] and "open chain" in got["error"]
+    j = qtn.DMRG2(qtn.MPO_ham_heis(40, cyclic=True), bond_dims=8,
+                  cutoffs=0.0, p0=qtn.MPS_rand_state(40, 8, seed=3,
+                                                     cyclic=True,
+                                                     dtype="float64"),
+                  cyclic_mode="segmented")
+    assert j._cyc is not None
+    with pytest.raises(AttributeError, match="_A"):
+        j.shard_onto(jmesh_2d())
 
 
 def test_bulk_arrays_really_sharded(world):

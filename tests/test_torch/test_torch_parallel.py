@@ -264,9 +264,10 @@ def test_contract_sliced_exactness(world):
 
 def test_amplitude_mesh(world):
     got = _case(world, "amplitude_mesh")
-    np.testing.assert_allclose(got["mesh"], got["ser"], rtol=1e-12)
+    tol = 1e-12 * np.abs(world[1]["amplitudes"]).max()
+    np.testing.assert_allclose(got["mesh"], got["ser"], rtol=1e-12, atol=tol)
     np.testing.assert_allclose(got["mesh"], world[1]["amplitudes"],
-                               rtol=1e-12)
+                               rtol=1e-12, atol=tol)
 
 
 # -- the world's own rules ---------------------------------------------------------
@@ -300,6 +301,22 @@ def test_get_mesh_without_cuda_raises():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_mesh()
     assert not dist.is_initialized()
+
+
+def test_get_mesh_from_devices(world):
+    """``devices=`` gives quimb_tpu's mesh shapes and axis names over as
+    many devices; a list of another length than the world raises."""
+    from quimb_tpu.parallel.mesh import get_mesh_2d as jmesh_2d
+
+    got = _case(world, "get_mesh_from_devices")
+    cpus = jax.devices("cpu")
+    for key, m in (
+            ("1d", jpar.get_mesh(devices=cpus[:NPROCS])),
+            ("2d", jmesh_2d(devices=cpus[:NPROCS])),
+            ("first_n", jpar.get_mesh(NPROCS, devices=cpus[:NPROCS + 2]))):
+        assert got[key] == (m.devices.shape, tuple(m.axis_names))
+    assert got["short"].startswith(f"{NPROCS - 1} devices given for a "
+                                   f"world of {NPROCS} ranks")
 
 
 def test_dryrun_multichip(world):

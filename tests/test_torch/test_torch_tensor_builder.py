@@ -401,17 +401,18 @@ def test_ising_marginals_match():
     j = jtn.TN2D_classical_ising_partition_function(2, 3, BETA, h=0.1,
                                                     outputs=outs)
     oix = ("s0,0", "s1,2")
+    ref = np.asarray(j.contract(..., output_inds=oix).data)
     np.testing.assert_allclose(
-        t.contract(..., output_inds=oix).data.numpy(),
-        np.asarray(j.contract(..., output_inds=oix).data), rtol=1e-12)
+        t.contract(..., output_inds=oix).data.numpy(), ref, rtol=1e-12,
+        atol=1e-12 * np.abs(ref).max())
     t = ttn.TN3D_classical_ising_partition_function(
         2, 2, 2, BETA, outputs=(1, 1, 0), device=CPU)
     j = jtn.TN3D_classical_ising_partition_function(
         2, 2, 2, BETA, outputs=(1, 1, 0))
+    ref = np.asarray(j.contract(..., output_inds=("s1,1,0",)).data)
     np.testing.assert_allclose(
-        t.contract(..., output_inds=("s1,1,0",)).data.numpy(),
-        np.asarray(j.contract(..., output_inds=("s1,1,0",)).data),
-        rtol=1e-12)
+        t.contract(..., output_inds=("s1,1,0",)).data.numpy(), ref,
+        rtol=1e-12, atol=1e-12 * np.abs(ref).max())
 
 
 @pytest.mark.parametrize("kw", [
@@ -429,8 +430,9 @@ def test_embedded_ising_matches(kw):
     out = tuple(f"s{s}" for s in sorted(kw.get("outputs", ())))
     a = t.contract(..., output_inds=out)
     b = j.contract(..., output_inds=out)
-    np.testing.assert_allclose(np.asarray(getattr(a, "data", a)),
-                               np.asarray(getattr(b, "data", b)), rtol=1e-12)
+    ref = np.asarray(getattr(b, "data", b))
+    np.testing.assert_allclose(np.asarray(getattr(a, "data", a)), ref,
+                               rtol=1e-12, atol=1e-12 * np.abs(ref).max())
     Jd = {(0, 1): 0.4, (1, 2): -0.3}
     _same_value(
         ttn.TN2D_embedded_classical_ising_partition_function(
