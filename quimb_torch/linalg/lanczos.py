@@ -14,11 +14,17 @@ of alpha and beta), and an early exit on the Ritz value. quimb_tpu's fused
 An operator ``A`` is a matvec callable, or an object with ``@`` on the
 vectors' device: a tensor, :class:`quimb_torch.core.SparseHam` or
 :class:`quimb_torch.core.LocalTermsHam`.
+
+While a profiler session records, each restart of :func:`eigh_lanczos`
+runs inside the range ``lanczos_restart`` of :mod:`quimb_torch.tracing`,
+and each tridiagonal solve inside ``tridiag``.
 """
 
 import numpy as np
 import scipy.linalg as sla
 import torch
+
+from ..tracing import span, spanned
 
 
 def _norm(v):
@@ -74,6 +80,7 @@ def _lanczos_basis(matvec, v0, ncv):
     return V, alpha, beta
 
 
+@spanned("tridiag")
 def _tridiag_eigh(alpha, beta):
     """Eigendecomposition of the symmetric tridiagonal (alpha, beta), on
     their device."""
@@ -86,6 +93,7 @@ def _tridiag_eigh(alpha, beta):
     return torch.linalg.eigh(T)
 
 
+@spanned("tridiag")
 def _host_tridiag_eigh(alpha, beta):
     """LAPACK float64 eigendecomposition of the tridiagonal (alpha, beta),
     read from their device in one copy. Returns numpy (w ascending, S)."""
@@ -119,10 +127,11 @@ def eigh_lanczos(A, v0, ncv=20, restarts=4, tol=1e-9, which="SA"):
     idx = 0 if which in ("SA", "SR") else ncv - 1
     lam_prev, v = None, v0
     for _ in range(max(restarts, 1)):
-        V, alpha, beta = _lanczos_basis(matvec, v, ncv)
-        w, S = _host_tridiag_eigh(alpha, beta)
-        lam = float(w[idx])
-        v = torch.reshape(_ritz_vector(V, alpha, S, idx), v0.shape)
+        with span("lanczos_restart"):
+            V, alpha, beta = _lanczos_basis(matvec, v, ncv)
+            w, S = _host_tridiag_eigh(alpha, beta)
+            lam = float(w[idx])
+            v = torch.reshape(_ritz_vector(V, alpha, S, idx), v0.shape)
         if lam_prev is not None and \
                 abs(lam - lam_prev) <= tol * max(1.0, abs(lam)):
             break

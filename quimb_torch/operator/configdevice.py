@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..ops.backend import resolve_device, to_device, to_torch_dtype
+from ..tracing import spanned
 from .hilbertspace import _binom_table
 
 __all__ = ["CoupledHam"]
@@ -275,6 +276,7 @@ class CoupledHam:
 
     # -- matvec ---------------------------------------------------------------
 
+    @spanned("sector_matvec")
     def matvec(self, x):
         """``H @ x`` for x (D,) or a block of columns (D, m), in the
         promoted dtype of the operator and ``x``."""

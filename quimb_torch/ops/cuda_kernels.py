@@ -25,6 +25,7 @@ import functools
 
 import torch
 
+from ..tracing import spanned
 from . import _build
 
 #: Matvecs launched on the card in this process, by kernel; a prepared
@@ -173,6 +174,7 @@ class _Prepared:
         if not theta.is_contiguous():
             raise ValueError("theta must be contiguous")
 
+    @spanned("sandwich")
     def __call__(self, theta):
         self._check_theta(theta)
         _, M, _, _, N = self.dims
@@ -236,7 +238,12 @@ class _PreparedF64(_Prepared):
 def prepare_sandwich_reference(a, b):
     """The plain version of the prepare step: ``theta ->
     sandwich_matvec_reference(a, theta, b)``."""
-    return lambda theta: sandwich_matvec_reference(a, theta, b)
+
+    @spanned("sandwich")
+    def prepared(theta):
+        return sandwich_matvec_reference(a, theta, b)
+
+    return prepared
 
 
 def prepare_sandwich_tf32(a, b):

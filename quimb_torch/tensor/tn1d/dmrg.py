@@ -17,6 +17,11 @@ size-1 bonds), environments ``(b, w, k)`` — and at every bond (two-site,
 - the sweep driver (:class:`DMRG`), which right-canonizes the chain
   before a fresh right sweep.
 
+While a profiler session records, these steps run inside the ranges of
+:mod:`quimb_torch.tracing`: ``bond`` (a whole local update), within it
+``local_solve``, ``lanczos_restart``, ``split`` and ``env_step`` (also
+the environments built at a sweep's start), and ``canonize``.
+
 The engines take quimb_tpu's arguments: an MPO object and an MPS start
 state, whose uniform arrays they sweep; ``.state`` gives a
 :class:`~.core.MatrixProductState` back. :class:`DMRGX` (dense local
@@ -37,6 +42,7 @@ from ...linalg.lanczos import _lanczos_basis, _tridiag_eigh
 from ...ops import decomp
 from ...ops.backend import to_host
 from ...ops.cuda_kernels import resolve_sandwich
+from ...tracing import span, spanned
 from ..core import TensorNetwork
 from .builders import MPS_rand_state
 from .core import (
@@ -220,16 +226,18 @@ def _lanczos_ground(heff, theta0, K1, K2, ncv, restarts):
     v = theta0 / torch.linalg.norm(torch.reshape(theta0, (-1,)))
     lam = None
     for _ in range(restarts):
-        V, alpha, beta = _lanczos_basis(matvec, v, ncv)
-        w, S = _tridiag_eigh(alpha, beta)
-        lam = w[0]
-        coeff = S[:, 0].to(V.dtype)
-        vflat = coeff @ V
-        vflat = vflat / torch.linalg.norm(vflat)
-        v = torch.reshape(vflat, theta0.shape)
+        with span("lanczos_restart"):
+            V, alpha, beta = _lanczos_basis(matvec, v, ncv)
+            w, S = _tridiag_eigh(alpha, beta)
+            lam = w[0]
+            coeff = S[:, 0].to(V.dtype)
+            vflat = coeff @ V
+            vflat = vflat / torch.linalg.norm(vflat)
+            v = torch.reshape(vflat, theta0.shape)
     return lam, v
 
 
+@spanned("local_solve")
 def _local_solve_2site(L, W1, W2, R, theta0, ncv, restarts,
                        norm_energy=True, sandwich=None):
     """Restarted-Lanczos ground state of the 2-site effective
@@ -253,6 +261,7 @@ def _local_solve_2site(L, W1, W2, R, theta0, ncv, restarts,
     return lam, v
 
 
+@spanned("local_solve")
 def _local_solve_1site(L, W, R, theta0, ncv, restarts, norm_energy=True,
                        sandwich=None):
     """Restarted-Lanczos ground state of the 1-site effective
@@ -277,6 +286,7 @@ _MASKED_SPLITS = {
 }
 
 
+@spanned("split")
 def _split_2site(theta, max_bond, cutoff, absorb, method="svd",
                  oversample=0):
     """Split the updated theta (k,d1,d2,r) into A1 (k,d1,c) and
@@ -342,11 +352,13 @@ class _LocalSweep:
         return torch.ones((1, 1, 1), dtype=A.dtype, device=A.device)
 
     @staticmethod
+    @spanned("env_step")
     def env_right(L, A, W):
         """The left environment of the next site, absorbing A under W."""
         return _env_step_right(L, torch.conj(A), W, A)
 
     @staticmethod
+    @spanned("env_step")
     def env_left(R, A, W):
         """The right environment of the previous site."""
         return _env_step_left(R, torch.conj(A), W, A)
@@ -567,6 +579,7 @@ class DMRG:
         self._A = list(self._ops.share(lambda: [a.clone() for a in self._A]))
         return self
 
+    @spanned("canonize")
     def _right_canonize_all(self):
         """Bring all sites into right-canonical form (B-form)."""
         self._A = list(self._ops.share(lambda: _right_canonized(self._A)))
@@ -608,6 +621,7 @@ class DMRG:
             return "svd:sub0"
         return method
 
+    @spanned("bond")
     def _update_right(self, i, lenv, renv, max_bond, cutoff, method,
                       solve_opts):
         """The local update at site i of a right sweep; returns its
@@ -638,6 +652,7 @@ class DMRG:
                 self._A[i] = theta
         return en, ops.env_right(lenv, self._A[i], self._W[i])
 
+    @spanned("bond")
     def _update_left(self, i, lenvs, renv, max_bond, cutoff, method,
                      solve_opts):
         """The local update at site i of a left sweep; returns its energy

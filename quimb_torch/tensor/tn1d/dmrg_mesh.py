@@ -36,6 +36,7 @@ from ...parallel.mesh import (
     mesh_device,
     mesh_put,
 )
+from ...tracing import spanned
 from .dmrg import (
     _env_step_left,
     _env_step_right,
@@ -134,6 +135,7 @@ class MeshSweep:
         return self._put(torch.ones((1, 1, 1), dtype=A.dtype,
                                     device=A.device), side)
 
+    @spanned("env_step")
     def env_right(self, L, A, W):
         """The next left environment: this rank's bra rows of L absorbed,
         summed over the left axis."""
@@ -143,6 +145,7 @@ class MeshSweep:
             part = _all_reduce(part, self._groups[0])
         return self._put(part, 0)
 
+    @spanned("env_step")
     def env_left(self, R, A, W):
         """The previous right environment, as :meth:`env_right`."""
         rows = self._rows(R, 1, self._me)
